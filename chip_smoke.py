@@ -18,9 +18,18 @@ Phases, in order; any failure raises, so the exit code is non-zero:
   4. front-end odometry (run_sequence) over consecutive scans of the same
      simulation: ATE against ground truth, and the per-step relative error
      held to the same gate.
+  5. mapping: N_MAP consecutive scans at RoloConfig() capacities; scan_step
+     (both kernels) on every scan, backend_step whenever the 0.15 s mapping
+     cadence fires (as runtime/slam.py does), then one solve_graph_host.
+     Raises unless every pose is finite, at least 10 keyframes were added,
+     every optimized step had >= 50 factors, both kernels' launch counters
+     rose, and the mapped keyframes' ATE is no worse than the front-end's
+     over the same scans.
 Then one JSON line lists each kernel: its launches in phase 3's main-path
-run, and from phase 2 its worst max_abs_err and its ms / plain_ms summed
-over its cases (one call of each; every case is also under "cases").
+run (and in phase 5's, "launches_mapping"), and from phase 2 its worst
+max_abs_err and its ms / plain_ms summed over its cases (one call of each;
+every case is also under "cases"; the B=1 cases are the shapes of phases 4
+and 5).
 The line before the last is the card's `nvidia-smi` name and power limit;
 the last line is {"ok": true, "device": {...}}. Imports no JAX.
 """
@@ -37,18 +46,24 @@ import torch
 
 from rolo_tpu_torch import bench
 from rolo_tpu_torch.config import RoloConfig
-from rolo_tpu_torch.frontend.odometry import run_sequence
+from rolo_tpu_torch.frontend.odometry import init_state, run_sequence, scan_step
+from rolo_tpu_torch.mapping.backend import backend_step, init_backend, solve_graph_host
 from rolo_tpu_torch.ops import cuda_build
 from rolo_tpu_torch.ops.knn_moments import knn_moments, knn_moments_torch
 from rolo_tpu_torch.ops.voxel_join import (INVALID_PACK, keyed_matmul, keyed_matmul_torch,
                                            pack_polar, pack_uniform)
+from rolo_tpu_torch.pointcloud.cloud import PaddedCloud, concat_clouds
 from rolo_tpu_torch.registration.gicp import OFFSETS
 from rolo_tpu_torch.runtime.platform import configure_precision, nvidia_smi_name_power
+from rolo_tpu_torch.sim.dataset import generate_sequence
 from rolo_tpu_torch.voxel.knn import estimate_cov6, moment_table
 from rolo_tpu_torch.voxel.voxelmap import build_voxel_map, polar_coord, uniform_coord
 
 BATCH, STRIDE = bench.BATCH, bench.STRIDE
 N_SEQ = 24  # consecutive scans for the odometry phase (>= BATCH + STRIDE)
+N_MAP = 60  # consecutive scans for the mapping phase
+MIN_KEYFRAMES = 10
+MIN_FACTORS = 50  # scan2map's min_factors (rolo_tpu/mapping/scan2map.py:273)
 # max |kernel - plain| per output plane, relative to max(1, max |plain|) of
 # that plane: both sum the same f32 terms in different orders.
 REL_TOL = 1e-5
@@ -205,6 +220,110 @@ def odometry(cfg: RoloConfig, clouds, frames, interval: float = 0.1):
     return ate, float(np.median(rot_err)), float(np.median(trans_err))
 
 
+def _ate(trans: torch.Tensor, frames) -> float:
+    """RMS position error against ground truth in frame 0's coordinates."""
+    g_rot = torch.stack([f.gt_rot for f in frames]).cpu().double()
+    g_trans = torch.stack([f.gt_trans for f in frames]).cpu().double()
+    gt0 = (g_rot[0].T @ (g_trans - g_trans[0]).T).T
+    return float(torch.sqrt(((trans.cpu().double() - gt0) ** 2).sum(-1).mean()))
+
+
+def mapping(cfg: RoloConfig, frames, interval: float = 0.1):
+    """Phase 5: the mapping back-end fed by the front-end, scan by scan, as
+    runtime/slam.py:333-384 drives it, then the bucketed graph solve. The
+    frames start at scan 0, so "frame 0's coordinates" are the map's."""
+    reg, st = cfg.registration, cfg.static
+    feats = [bench.featurize_parts(f, cfg) for f in frames]
+    sync = torch.cuda.synchronize if frames[0].points.is_cuda else (lambda: None)
+    front = init_state(st.max_feature_points, frames[0].points.device)
+    state = init_backend(cfg, frames[0].points.device)
+    front_trans, steps = [], []
+    last = -float("inf")
+    sync()
+    keyed_matmul.launches = 0
+    knn_moments.launches = 0
+    t_run = time.perf_counter()
+    for i, (fc, img) in enumerate(feats):
+        feat = concat_clouds(fc.corners, fc.surfaces, st.max_feature_points)
+        front, fo = scan_step(front, feat.xyz, feat.mask, interval, reg, st.max_voxels,
+                              reg.k_correspondences, enable_failure_gate=reg.enable_failure_gate)
+        front_trans.append(fo.pose_trans)
+        stamp = i * interval
+        if stamp - last >= cfg.mapping.mapping_process_interval:
+            last = stamp
+            raw = PaddedCloud(img.xyz.reshape(-1, 3), img.mask.reshape(-1))
+            sc_cloud = raw if cfg.loop.sc_input_type == "scan_raw" else fc.surfaces
+            sync()
+            t0 = time.perf_counter()
+            state, out = backend_step(state, fc.corners, fc.surfaces, sc_cloud, fo.pose_rot,
+                                      fo.pose_trans, True, stamp, cfg)
+            sync()
+            steps.append((i, out, (time.perf_counter() - t0) * 1e3))
+    t0 = time.perf_counter()
+    state = solve_graph_host(state, cfg, count_hint=len(steps))
+    sync()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    seconds = time.perf_counter() - t_run
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    # the same solve again, warm (the first call pays torch.func's and the
+    # linear-algebra libraries' first-use costs); the graph is now solved
+    t0 = time.perf_counter()
+    solve_graph_host(state._replace(db=state.db._replace(rot=state.db.rot.clone(),
+                                                         trans=state.db.trans.clone())),
+                     cfg, count_hint=len(steps))
+    sync()
+    warm_solve_ms = (time.perf_counter() - t0) * 1e3
+
+    kf_scans = [i for i, out, _ in steps if bool(out.keyframe_added)]
+    n_kf = int(state.db.count)
+    iters = [int(out.s2m_iterations) for _, out, _ in steps]
+    nfac = [int(out.num_factors) for _, out, _ in steps]
+    degen = [int(bool(out.degenerate)) for _, out, _ in steps]
+    step_ms = [ms for _, _, ms in steps[2:]]  # after the first step and a warm optimizing one
+    kf_frames = [frames[i] for i in kf_scans]
+    front_ate = _ate(torch.stack([front_trans[i] for i in kf_scans]), kf_frames)
+    map_ate = _ate(state.db.trans[:n_kf], kf_frames)
+    print(f"mapping: {len(frames)} scans in {seconds:.2f} s, {len(steps)} mapping steps, "
+          f"{n_kf} keyframes added (scans {kf_scans})")
+    print(f"mapping: s2m_iterations {iters}")
+    print(f"mapping: num_factors {nfac}")
+    print(f"mapping: degenerate {degen}")
+    print(f"mapping: backend_step wall ms median {statistics.median(step_ms):.2f} "
+          f"max {max(step_ms):.2f} over {len(step_ms)} steps; solve_graph_host {solve_ms:.2f} ms "
+          f"cold, {warm_solve_ms:.2f} ms warm ({n_kf} keyframes)")
+    print(f"mapping: ATE over the {n_kf} keyframe scans: front-end {front_ate:.4f} m, "
+          f"mapped keyframes {map_ate:.4f} m; launches {launches}")
+    poses = torch.cat([state.db.rot[:n_kf].reshape(-1), state.db.trans[:n_kf].reshape(-1),
+                       torch.stack(front_trans).reshape(-1), state.xyz, state.rpy])
+    if not bool(torch.isfinite(poses).all()):
+        raise AssertionError("non-finite mapping poses")
+    if n_kf != len(kf_scans) or n_kf < MIN_KEYFRAMES:
+        raise AssertionError(f"mapping added {n_kf} keyframes (need >= {MIN_KEYFRAMES})")
+    starved = [(i, n) for (i, out, _), n in zip(steps[1:], nfac[1:]) if n < MIN_FACTORS]
+    if starved:
+        raise AssertionError(f"optimized steps with < {MIN_FACTORS} factors: {starved}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the mapping path")
+    if not map_ate <= front_ate:
+        raise AssertionError(f"mapped keyframe ATE {map_ate:.4f} m exceeds the front-end's "
+                             f"{front_ate:.4f} m over the same scans")
+    if frames[0].points.is_cuda:
+        # one more step of the last mapped scan, traced (it rewrites the DB
+        # row past the count: the state above is not advanced)
+        i = steps[-1][0]
+        fc, img = feats[i]
+        raw = PaddedCloud(img.xyz.reshape(-1, 3), img.mask.reshape(-1))
+        rot, trans = state.db.rot[n_kf - 1], state.db.trans[n_kf - 1]
+
+        def run():
+            backend_step(state, fc.corners, fc.surfaces, raw, rot, trans, True, i * interval, cfg)
+            sync()
+
+        print(f"profile of one backend_step: {json.dumps(bench.profile_run(run))}")
+    return launches, front_ate, map_ate
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is false)")
@@ -229,7 +348,10 @@ def main() -> int:
     print(f"workload: {N_SEQ} sim scans featurized in {time.perf_counter() - t0:.1f} s, "
           f"valid features per scan {[int(c.mask.sum()) for c in clouds[:BATCH + STRIDE]]}")
 
-    summary = check_kernels(kernel_cases(cfg, *pairs[:4]))
+    cases = kernel_cases(cfg, *pairs[:4])
+    cases += [(name, f"B=1 {case}", kern, plain)
+              for name, case, kern, plain in kernel_cases(cfg, *(t[:1] for t in pairs[:4]))]
+    summary = check_kernels(cases)
     launches, rot_med, trans_med, rate = main_path(cfg, *pairs)
     print(f"registrations/s: {rate:.2f} at B={BATCH} on {smi} "
           f"(gate medians {rot_med:.4f} deg, {trans_med:.5f} m)")
@@ -237,9 +359,13 @@ def main() -> int:
     prof = bench.profile_batch(*pairs[:4], reg, cfg.static.max_voxels, reg.k_correspondences)
     print(f"profile of one batch: {json.dumps(prof)}")
     odometry(cfg, clouds, frames)
+    del clouds, frames, pairs
+    map_frames = list(generate_sequence(bench.bench_sim_config(N_MAP), device))
+    map_launches, _, _ = mapping(cfg, map_frames)
 
     print(json.dumps({"kernels": [
-        {"name": name, **KERNELS[name], "launches": launches[name], **summary[name]}
+        {"name": name, **KERNELS[name], "launches": launches[name],
+         "launches_mapping": map_launches[name], **summary[name]}
         for name in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,8 +23,8 @@ import torch
 
 from .config import RegistrationConfig, RoloConfig
 from .pointcloud.cloud import PaddedCloud, concat_clouds
-from .pointcloud.features import extract_features
-from .pointcloud.projection import RawScan, project_scan
+from .pointcloud.features import FeatureClouds, extract_features
+from .pointcloud.projection import RawScan, RingImage, project_scan
 from .registration.rotgicp import register_scan_pair
 from .runtime.platform import bench_metadata, configure_precision
 from .sim.dataset import SimConfig, SimFrame, generate_sequence
@@ -41,9 +41,9 @@ def bench_sim_config(n_scans: int) -> SimConfig:
                      roughness=1.2, noise_std=0.02, dropout=0.05, seed=0)
 
 
-def featurize(frame: SimFrame, cfg: RoloConfig) -> PaddedCloud:
-    """Raw scan -> range image -> LOAM corners + surfaces, stacked into one
-    padded cloud of cfg.static.max_feature_points."""
+def featurize_parts(frame: SimFrame, cfg: RoloConfig) -> Tuple[FeatureClouds, RingImage]:
+    """Raw scan -> range image -> LOAM corners and surfaces: the feature
+    clouds apart, and the range image (whose points scan-context reads)."""
     st, dev = cfg.static, frame.points.device
     cap = st.max_raw_points
     m = min(frame.points.shape[0], cap)
@@ -59,7 +59,14 @@ def featurize(frame: SimFrame, cfg: RoloConfig) -> PaddedCloud:
     fc = extract_features(img, cfg.features.edge_threshold, cfg.features.surf_threshold,
                           cfg.features.odometry_surf_leaf_size, st.max_corner_points,
                           st.max_surf_points)
-    return concat_clouds(fc.corners, fc.surfaces, st.max_feature_points)
+    return fc, img
+
+
+def featurize(frame: SimFrame, cfg: RoloConfig) -> PaddedCloud:
+    """Corners and surfaces stacked into one padded cloud of
+    cfg.static.max_feature_points (the front-end's input)."""
+    fc, _ = featurize_parts(frame, cfg)
+    return concat_clouds(fc.corners, fc.surfaces, cfg.static.max_feature_points)
 
 
 def gt_relative(rot_prev, trans_prev, rot_cur, trans_cur):
@@ -107,19 +114,13 @@ def register_batch(src, src_mask, tgt, tgt_mask, guess, reg: RegistrationConfig,
                               dt, dt, reg, voxel_capacity, k)
 
 
-def profile_batch(src, src_mask, tgt, tgt_mask, reg: RegistrationConfig, voxel_capacity: int,
-                  k: int, top: int = 12) -> dict:
-    """Where one registration batch spends the card's time: wall time
-    without the profiler, then one torch.profiler trace for the kernels.
-    The busy share is kernel time over the unprofiled wall time."""
+def profile_run(run, top: int = 12) -> dict:
+    """Where one call of `run` (which must end in a synchronize) spends the
+    card's time: wall time without the profiler after a warm call, then one
+    torch.profiler trace for the kernels. The busy share is kernel time over
+    the unprofiled wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    guess = torch.zeros(src.shape[0], 3, device=src.device)
-
-    def run():
-        register_batch(src, src_mask, tgt, tgt_mask, guess, reg, voxel_capacity, k)
-        torch.cuda.synchronize()
 
     run()
     t0 = time.perf_counter()
@@ -138,6 +139,18 @@ def profile_batch(src, src_mask, tgt, tgt_mask, reg: RegistrationConfig, voxel_c
     return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "busy_share": kernel_ms / wall_ms,
             "device_launches": launches,
             "top": [{"kernel": name[:90], "ms": ms, "count": n} for name, (ms, n) in rows]}
+
+
+def profile_batch(src, src_mask, tgt, tgt_mask, reg: RegistrationConfig, voxel_capacity: int,
+                  k: int, top: int = 12) -> dict:
+    """`profile_run` of one registration batch from a zero guess."""
+    guess = torch.zeros(src.shape[0], 3, device=src.device)
+
+    def run():
+        register_batch(src, src_mask, tgt, tgt_mask, guess, reg, voxel_capacity, k)
+        torch.cuda.synchronize()
+
+    return profile_run(run, top)
 
 
 def main() -> int:

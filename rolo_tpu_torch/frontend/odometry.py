@@ -79,12 +79,14 @@ def forward_predict(step_trans, last_interval, interval):
 
 def scan_step(state: OdometryState, new_xyz: torch.Tensor, new_mask: torch.Tensor,
               interval: torch.Tensor, cfg: RegistrationConfig = RegistrationConfig(),
-              voxel_capacity: int = 8192,
-              k: int = 20) -> Tuple[OdometryState, OdometryOutput]:
+              voxel_capacity: int = 8192, k: int = 20,
+              enable_failure_gate: bool = False) -> Tuple[OdometryState, OdometryOutput]:
     """One front-end step (odometry.py:89-166): register the previous
     features onto this scan's features new_xyz [N, 3] and integrate. The
-    jump flag `failure` is computed and returned; the reference's opt-in
-    gate that acts on it (enable_failure_gate) is not ported yet."""
+    jump flag `failure` is always computed and returned; with
+    `enable_failure_gate` a flagged step is rejected: the pose holds and the
+    step is zeroed, so the next forward prediction does not re-seed from the
+    jump (odometry.py:133-143)."""
     dt = new_xyz.dtype
     interval = torch.as_tensor(interval, dtype=dt, device=new_xyz.device)
     new_cov = estimate_cov6(new_xyz[None], new_mask[None], k=k, method=cfg.regularization)[0]
@@ -105,6 +107,11 @@ def scan_step(state: OdometryState, new_xyz: torch.Tensor, new_mask: torch.Tenso
     d_t = torch.sum(step_inv.trans ** 2)
     d_r = torch.sum(so3.log(step_inv.rot) ** 2)
     failure = ((d_t / dt2 >= 5.0) | (d_r / dt2 >= 0.04)) & ~first
+    if enable_failure_gate:
+        pose = SE3(torch.where(failure, state.pose_rot, pose.rot),
+                   torch.where(failure, state.pose_trans, pose.trans))
+        step_rot = torch.where(failure, eye, step_rot)
+        step_trans = torch.where(failure, torch.zeros_like(step_trans), step_trans)
 
     new_state = OdometryState(
         pose_rot=pose.rot, pose_trans=pose.trans, prev_xyz=new_xyz, prev_mask=new_mask,

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -16,6 +16,11 @@ class SE3(NamedTuple):
     rot: torch.Tensor
     trans: torch.Tensor
 
+    @staticmethod
+    def identity(batch_shape=(), dtype=torch.float32, device=None) -> "SE3":
+        rot = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3)
+        return SE3(rot, torch.zeros(*batch_shape, 3, dtype=dtype, device=device))
+
     def compose(self, other: "SE3") -> "SE3":
         """self @ other (apply `other` first)."""
         rot = self.rot @ other.rot
@@ -25,6 +30,38 @@ class SE3(NamedTuple):
     def inverse(self) -> "SE3":
         rt = self.rot.transpose(-1, -2)
         return SE3(rt, -(rt @ self.trans[..., None])[..., 0])
+
+    def apply(self, points: torch.Tensor) -> torch.Tensor:
+        """Transform points: [..., 3] (one per transform) or [..., N, 3]."""
+        if points.dim() == self.trans.dim():
+            return (self.rot @ points[..., None])[..., 0] + self.trans
+        return points @ self.rot.transpose(-1, -2) + self.trans[..., None, :]
+
+    def as_matrix(self) -> torch.Tensor:
+        """-> [..., 4, 4] homogeneous matrix."""
+        m = self.rot.new_zeros(*self.rot.shape[:-2], 4, 4)
+        m[..., :3, :3] = self.rot
+        m[..., :3, 3] = self.trans
+        m[..., 3, 3] = 1.0
+        return m
+
+    @staticmethod
+    def from_matrix(m: torch.Tensor) -> "SE3":
+        return SE3(m[..., :3, :3], m[..., :3, 3])
+
+    @staticmethod
+    def from_xyzrpy(vec: torch.Tensor) -> "SE3":
+        """[..., 6] (x, y, z, roll, pitch, yaw) -> SE3 (pcl::getTransformation)."""
+        return SE3(so3.rpy_to_matrix(vec[..., 3], vec[..., 4], vec[..., 5]), vec[..., :3])
+
+    def to_xyzrpy(self) -> torch.Tensor:
+        roll, pitch, yaw = so3.matrix_to_rpy(self.rot)
+        return torch.cat([self.trans, torch.stack([roll, pitch, yaw], dim=-1)], dim=-1)
+
+
+def transform_points(rot: torch.Tensor, trans: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """pts [N, 3] -> R p + t, broadcast over leading batch dims of (rot, trans)."""
+    return pts @ rot.transpose(-1, -2) + trans[..., None, :]
 
 
 def exp(xi: torch.Tensor) -> SE3:
@@ -62,3 +99,19 @@ def log(t: SE3) -> torch.Tensor:
     )
     v_inv = eye - 0.5 * omega_hat + cot_term[..., None, None] * omega_sq
     return torch.cat([omega, (v_inv @ t.trans[..., None])[..., 0]], dim=-1)
+
+
+def rigid_align(src: torch.Tensor, dst: torch.Tensor,
+                weights: Optional[torch.Tensor] = None) -> SE3:
+    """Weighted Kabsch: the SE3 minimizing sum w |T(src) - dst|^2 for
+    src, dst [N, 3] (se3.py:135-149)."""
+    w = torch.ones_like(src[:, 0]) if weights is None else weights.to(src.dtype)
+    wsum = torch.clamp(w.sum(), min=1e-9)
+    cs = (w[:, None] * src).sum(0) / wsum
+    cd = (w[:, None] * dst).sum(0) / wsum
+    h = torch.einsum("n,ni,nj->ij", w, src - cs, dst - cd)
+    u, _, vt = torch.linalg.svd(h)
+    d = torch.linalg.det(vt.T @ u.T)
+    s = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
+    rot = vt.T @ s @ u.T
+    return SE3(rot, cd - rot @ cs)

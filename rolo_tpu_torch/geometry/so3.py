@@ -26,6 +26,11 @@ def skew(v: torch.Tensor) -> torch.Tensor:
     )
 
 
+def unskew(m: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> [..., 3]; inverse of skew for antisymmetric m."""
+    return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
+
+
 def exp_quat(omega: torch.Tensor) -> torch.Tensor:
     """Axis-angle [..., 3] -> unit quaternion [..., 4] with the reference's
     small-angle series (so3.py:40-55)."""
@@ -97,6 +102,32 @@ def log(r: torch.Tensor) -> torch.Tensor:
     return vec * scale[..., None]
 
 
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (w,x,y,z) quaternions."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v [..., 3] by quaternion q [..., 4]."""
+    qv, v = torch.broadcast_tensors(q[..., 1:], v)
+    t = 2.0 * torch.linalg.cross(qv, v, dim=-1)
+    return v + q[..., :1] * t + torch.linalg.cross(qv, t, dim=-1)
+
+
 def rpy_to_matrix(roll, pitch, yaw) -> torch.Tensor:
     """R = Rz(yaw) Ry(pitch) Rx(roll) (pcl::getTransformation convention)."""
     cr, sr = torch.cos(roll), torch.sin(roll)
@@ -106,3 +137,12 @@ def rpy_to_matrix(roll, pitch, yaw) -> torch.Tensor:
     row1 = torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], dim=-1)
     row2 = torch.stack([-sp, cp * sr, cp * cr], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def matrix_to_rpy(r: torch.Tensor):
+    """Rotation matrix -> (roll, pitch, yaw), inverse of rpy_to_matrix
+    (so3.py:165-175)."""
+    pitch = torch.arcsin(torch.clamp(-r[..., 2, 0], -1.0, 1.0))
+    roll = torch.atan2(r[..., 2, 1], r[..., 2, 2])
+    yaw = torch.atan2(r[..., 1, 0], r[..., 0, 0])
+    return roll, pitch, yaw

@@ -36,9 +36,8 @@ def inv3x3(m: torch.Tensor) -> torch.Tensor:
     return adj * inv_det[..., None, None]
 
 
-def cholesky_solve_unrolled(h: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
-    """Pivot-free Cholesky solve of [..., n, n] x = [..., n], unrolled to
-    scalar ops (linalg.py:50-80)."""
+def _cholesky_unrolled(h: torch.Tensor, n: int):
+    """Lower Cholesky factor of [..., n, n] as an n x n list of [...] tensors."""
     l = [[None] * n for _ in range(n)]
     for i in range(n):
         for j in range(i + 1):
@@ -49,6 +48,13 @@ def cholesky_solve_unrolled(h: torch.Tensor, b: torch.Tensor, n: int) -> torch.T
                 l[i][j] = torch.sqrt(torch.clamp(s, min=1e-30))
             else:
                 l[i][j] = s / l[j][j]
+    return l
+
+
+def cholesky_solve_unrolled(h: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    """Pivot-free Cholesky solve of [..., n, n] x = [..., n], unrolled to
+    scalar ops (linalg.py:50-80)."""
+    l = _cholesky_unrolled(h, n)
     y = []
     for i in range(n):
         s = b[..., i]
@@ -62,6 +68,33 @@ def cholesky_solve_unrolled(h: torch.Tensor, b: torch.Tensor, n: int) -> torch.T
             s = s - l[k][i] * x[k]
         x[i] = s / l[i][i]
     return torch.stack(x, dim=-1)
+
+
+def cholesky_solve_unrolled_mat(h: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    """`cholesky_solve_unrolled` with a matrix right-hand side: h X = B for
+    [..., n, n] h and [..., n, m] B, the trailing m kept vectorized
+    (linalg.py:83-110)."""
+    l = _cholesky_unrolled(h, n)
+    y = []
+    for i in range(n):
+        s = b[..., i, :]
+        for k in range(i):
+            s = s - l[i][k][..., None] * y[k]
+        y.append(s / l[i][i][..., None])
+    x = [None] * n
+    for i in reversed(range(n)):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - l[k][i][..., None] * x[k]
+        x[i] = s / l[i][i][..., None]
+    return torch.stack(x, dim=-2)
+
+
+def inv_psd_unrolled(h: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of [..., n, n] PSD matrices by the unrolled Cholesky solve
+    against the identity (linalg.py:113-117)."""
+    eye = torch.eye(n, dtype=h.dtype, device=h.device).expand(h.shape)
+    return cholesky_solve_unrolled_mat(h, eye, n)
 
 
 def solve_psd(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,12 @@ import torch
 S00, S01, S02, S11, S12, S22 = range(6)
 
 
+def from_mat(m: torch.Tensor) -> torch.Tensor:
+    """[..., N, 3, 3] symmetric -> [..., 6, N] component planes."""
+    comps = [m[..., 0, 0], m[..., 0, 1], m[..., 0, 2], m[..., 1, 1], m[..., 1, 2], m[..., 2, 2]]
+    return torch.stack(comps, dim=-2)
+
+
 def to_mat(s: torch.Tensor) -> torch.Tensor:
     """[..., 6, N] -> [..., N, 3, 3] full symmetric matrices."""
     a, b, c, d, e, f = (s[..., i, :] for i in range(6))

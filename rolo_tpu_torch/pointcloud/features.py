@@ -132,15 +132,23 @@ def voxel_downsample_rings(xyz: torch.Tensor, sel: torch.Tensor, leaf: float,
                                   ring_id.reshape(-1))
 
 
+def voxel_downsample(cloud: PaddedCloud, leaf: float, capacity: int) -> PaddedCloud:
+    """Whole-cloud voxel-grid centroid downsample (features.py:185-187)."""
+    return _voxel_downsample_impl(cloud.xyz, cloud.mask, leaf, capacity, None)
+
+
 def _voxel_downsample_impl(xyz, sel, leaf, capacity, ring_id):
-    """Sort by the int32 hash, segment boundaries from the exact integer
-    coordinates, segment means via index_add_ (features.py:190-223)."""
+    """Sort by the int32 hash (salted by the ring when given), segment
+    boundaries from the exact integer coordinates, segment means via
+    index_add_ (features.py:190-223)."""
     coord = torch.floor(xyz / leaf).to(torch.int32)
     key = torch.where(sel, hash_coord(coord, salt=ring_id), 0x7FFFFFFF)
     order = torch.argsort(key, stable=True)
-    coord_s, xyz_s, sel_s, ring_s = coord[order], xyz[order], sel[order], ring_id[order]
+    coord_s, xyz_s, sel_s = coord[order], xyz[order], sel[order]
     same = (coord_s[1:] == coord_s[:-1]).all(dim=1) & sel_s[1:] & sel_s[:-1]
-    same &= ring_s[1:] == ring_s[:-1]
+    if ring_id is not None:
+        ring_s = ring_id[order]
+        same &= ring_s[1:] == ring_s[:-1]
     new_seg = torch.cat([torch.ones_like(same[:1]), ~same])
     seg_id = torch.cumsum(new_seg.to(torch.int64), 0) - 1
     seg_id = torch.where(sel_s, torch.clamp(seg_id, max=capacity), capacity)

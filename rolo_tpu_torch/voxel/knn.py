@@ -1,12 +1,19 @@
-"""Per-point covariances from k-NN neighbourhoods, torch port of
-`rolo_tpu/voxel/knn.py` (the "moment" and "exact" selectors with PLANE or
-no regularization).
+"""k-NN search and per-point covariances from k-NN neighbourhoods, torch
+port of `rolo_tpu/voxel/knn.py`.
 
-"moment" is the production path: the neighbourhood moments come from
-kernel K2 (`ops/knn_moments.py`) for any candidate count, and the
-covariance is the reference's E[xx] - mu mu^T formula (with its f32
+`knn_indices` takes the reference's arguments: the distance tile in the
+matmul form |q|^2 - 2 q.x + |x|^2 (full f32; the scan-to-submap binds) or the
+cancellation-free elementwise form (covariance neighbourhoods), a plain
+argmin for k=1, and `approximate=True` as an exact top-k, which is what the
+reference computes off the TPU.
+
+In `estimate_cov6`, "moment" is the production path: the neighbourhood
+moments come from kernel K2 (`ops/knn_moments.py`) for any candidate count,
+and the covariance is the reference's E[xx] - mu mu^T formula (with its f32
 cancellation, knn.py:176-180, reproduced rather than fixed). "exact" is
-top-k indices plus a gather, the oracle.
+top-k indices plus a gather, the oracle. All five regularizations of the
+reference are available; the non-PLANE ones run on the closed-form
+`ops/eig3.py`.
 """
 
 from __future__ import annotations
@@ -14,9 +21,13 @@ from __future__ import annotations
 import torch
 
 from ..ops import sym3
+from ..ops.eig3 import eigh3
 from ..ops.knn_moments import knn_moments
 
 PLANE = "plane"
+MIN_EIG = "min_eig"
+NORMALIZED_MIN_EIG = "normalized_min_eig"
+FROBENIUS = "frobenius"
 NONE = "none"
 _CHUNK = 512  # queries per distance tile of the exact selector
 
@@ -29,19 +40,64 @@ def _d2_chunk(qc: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return dx * dx + dy * dy + dz * dz
 
 
-def knn_indices(query: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor,
-                k: int) -> torch.Tensor:
-    """k nearest valid points of each query, elementwise distance form.
+def knn_indices(query: torch.Tensor, query_mask: torch.Tensor, points: torch.Tensor,
+                points_mask: torch.Tensor, k: int, chunk: int = 512, approximate: bool = False,
+                recall_target: float = 0.95, form: str = "matmul") -> torch.Tensor:
+    """k nearest valid points of each query (knn.py:45-121), nearest first.
 
-    query [B, Q, 3], points [B, N, 3], points_mask [B, N] -> idx [B, Q, k]
-    int64, nearest first. Invalid points lie at infinite distance."""
-    points = torch.where(points_mask[..., None], points, 0.0)
-    inf_row = torch.where(points_mask, 0.0, float("inf"))[:, None, :]
+    query [..., Q, 3], query_mask [..., Q], points [..., N, 3], points_mask
+    [..., N] -> idx [..., Q, k] int64; the leading dims are an optional batch
+    shared by all four. Invalid points lie at infinite distance (their
+    coordinates, NaN included, never enter the tile); rows of invalid queries
+    are arbitrary, as in the reference, and are masked downstream.
+    `approximate` and `recall_target` select the TPU's approximate top-k in
+    the reference; off the TPU it computes the exact top-k, and so does this
+    port. Ties among equal distances may pick other indices than the
+    reference's top-k."""
+    del query_mask, approximate, recall_target  # see the docstring
+    if form not in ("matmul", "elementwise"):
+        raise ValueError(f"unknown distance form {form!r}")
+    batch = query.shape[:-2]
+    q = query.reshape(-1, *query.shape[-2:])
+    pm = points_mask.reshape(-1, points_mask.shape[-1])
+    pts = torch.where(pm[..., None], points.reshape(-1, *points.shape[-2:]), 0.0)
+    inf_row = torch.where(pm, 0.0, float("inf"))[:, None, :]
+    x2 = torch.sum(pts * pts, dim=-1)[:, None, :]
     out = []
-    for q0 in range(0, query.shape[1], _CHUNK):
-        d2 = _d2_chunk(query[:, q0:q0 + _CHUNK], points) + inf_row
-        out.append(torch.topk(d2, k, dim=-1, largest=False, sorted=True).indices)
-    return torch.cat(out, dim=1)
+    for q0 in range(0, q.shape[1], chunk):
+        qc = q[:, q0:q0 + chunk]
+        if form == "elementwise":
+            d2 = _d2_chunk(qc, pts)
+        else:
+            d2 = torch.sum(qc * qc, dim=-1, keepdim=True) - 2.0 * (qc @ pts.transpose(1, 2)) + x2
+        d2 = d2 + inf_row
+        if k == 1:
+            out.append(torch.argmin(d2, dim=-1, keepdim=True))
+        else:
+            out.append(torch.topk(d2, k, dim=-1, largest=False, sorted=True).indices)
+    return torch.cat(out, dim=1).reshape(*batch, q.shape[1], k)
+
+
+def regularize_covariance(cov: torch.Tensor, method: str = PLANE) -> torch.Tensor:
+    """Eigenvalue surgery on [..., 3, 3] covariances (knn.py:124-147)."""
+    if method == NONE:
+        return cov
+    if method == FROBENIUS:
+        c = cov + 1e-3 * torch.eye(3, dtype=cov.dtype, device=cov.device)
+        c_inv = torch.linalg.inv(c)
+        norm = torch.linalg.vector_norm(c_inv.reshape(*c_inv.shape[:-2], 9), dim=-1)
+        return torch.linalg.inv(c_inv / norm[..., None, None])
+    eigval, eigvec = eigh3(cov)  # ascending
+    if method == PLANE:
+        values = torch.tensor([1e-3, 1.0, 1.0], dtype=cov.dtype,
+                              device=cov.device).expand_as(eigval)
+    elif method == MIN_EIG:
+        values = torch.clamp(eigval, min=1e-3)
+    elif method == NORMALIZED_MIN_EIG:
+        values = torch.clamp(eigval / torch.clamp(eigval[..., -1:], min=1e-12), min=1e-3)
+    else:
+        raise ValueError(f"unknown regularization {method}")
+    return torch.einsum("...ij,...j,...kj->...ik", eigvec, values, eigvec)
 
 
 def moment_table(cand_xyz: torch.Tensor, cand_mask: torch.Tensor) -> torch.Tensor:
@@ -76,11 +132,9 @@ def estimate_cov6(xyz: torch.Tensor, mask: torch.Tensor, k: int = 20, method: st
                   selector: str = "moment") -> torch.Tensor:
     """Per-point regularized covariances, SoA: xyz [B, N, 3], mask [B, N]
     -> [B, 6, N] sym3 planes (identity at masked points)."""
-    if method not in (PLANE, NONE):
-        raise ValueError(f"regularization {method!r} is not ported yet (needs ops/eig3)")
     xyz = torch.where(mask[..., None], xyz, 0.0)
     if selector == "exact":
-        idx = knn_indices(xyz, xyz, mask, k)  # [B, N, k]
+        idx = knn_indices(xyz, mask, xyz, mask, k, _CHUNK, form="elementwise")  # [B, N, k]
         b, n, _ = idx.shape
         neigh = torch.gather(xyz, 1, idx.reshape(b, n * k, 1).expand(b, n * k, 3))
         neigh = neigh.reshape(b, n, k, 3)
@@ -102,4 +156,6 @@ def estimate_cov6(xyz: torch.Tensor, mask: torch.Tensor, k: int = 20, method: st
         raise ValueError(f"unknown selector {selector!r}")
     if method == PLANE:
         cov6 = sym3.plane_regularize(cov6)
+    elif method != NONE:
+        cov6 = sym3.from_mat(regularize_covariance(sym3.to_mat(cov6), method))
     return torch.where(mask[:, None, :], cov6, sym3.identity_like(cov6))

@@ -116,3 +116,58 @@ def test_registration_cuda_matches_cpu(cuda):
                              2048, 10)
     assert torch.allclose(got.rot.cpu(), want.rot, atol=1e-4)
     assert torch.allclose(got.trans.cpu(), want.trans, atol=1e-3)
+
+
+def _mapping_run(frames, cfg, device):
+    """scan_step on every scan and backend_step at the 0.15 s cadence, on
+    `device`: (front-end poses, mapped outputs, kernel launches)."""
+    from rolo_tpu_torch.bench import featurize_parts
+    from rolo_tpu_torch.frontend.odometry import init_state, scan_step
+    from rolo_tpu_torch.mapping.backend import backend_step, init_backend
+    from rolo_tpu_torch.pointcloud.cloud import PaddedCloud, concat_clouds
+    from rolo_tpu_torch.sim.dataset import SimFrame
+
+    st, reg = cfg.static, cfg.registration
+    front = init_state(st.max_feature_points, device)
+    state = init_backend(cfg, device)
+    keyed_matmul.launches = knn_moments.launches = 0
+    fronts, outs, last = [], [], -float("inf")
+    for i, f in enumerate(frames):
+        fc, img = featurize_parts(SimFrame(*(t.to(device) if isinstance(t, torch.Tensor) else t
+                                             for t in f)), cfg)
+        feat = concat_clouds(fc.corners, fc.surfaces, st.max_feature_points)
+        front, fo = scan_step(front, feat.xyz, feat.mask, 0.1, reg, st.max_voxels,
+                              reg.k_correspondences)
+        fronts.append((fo.pose_rot.cpu(), fo.pose_trans.cpu()))
+        if i * 0.1 - last >= cfg.mapping.mapping_process_interval:
+            last = i * 0.1
+            raw = PaddedCloud(img.xyz.reshape(-1, 3), img.mask.reshape(-1))
+            state, out = backend_step(state, fc.corners, fc.surfaces, raw, fo.pose_rot,
+                                      fo.pose_trans, True, i * 0.1, cfg)
+            outs.append((out.rot.cpu(), out.trans.cpu(), bool(out.keyframe_added)))
+    return fronts, outs, (keyed_matmul.launches, knn_moments.launches)
+
+
+def test_backend_step_cuda_matches_plain(cuda):
+    """The mapping slice on the card (both kernels launched) against the
+    same run on CPU tensors, where the kernel wrappers take their plain
+    versions, from identical simulated scans at the fixture's capacities.
+    Tolerances as tests/test_torch_backend.py states them between packages:
+    the f32 plane fits and atomic scatter sums differ in the last bits."""
+    from torch_parity import small_config, small_sim_kwargs
+
+    from rolo_tpu_torch.sim.dataset import SimConfig, generate_sequence
+
+    cfg = small_config(**{"mapping.mapping_process_interval": 0.15})
+    frames = list(generate_sequence(SimConfig(**small_sim_kwargs(7)), "cpu"))
+    want_front, want, plain_launches = _mapping_run(frames, cfg, "cpu")
+    got_front, got, launches = _mapping_run(frames, cfg, cuda)
+    assert plain_launches == (0, 0) and launches[0] > 0 and launches[1] > 0
+    for (r, t), (wr, wt) in zip(got_front, want_front):
+        assert float(torch.linalg.vector_norm(t - wt)) < 0.01
+    assert len(got) == len(want) == 4
+    for (r, t, added), (wr, wt, wadded) in zip(got, want):
+        cos = float((torch.trace(r.T @ wr) - 1) / 2)
+        assert np.degrees(np.arccos(min(1.0, cos))) < 0.3
+        assert float(torch.linalg.vector_norm(t - wt)) < 0.02
+        assert added == wadded

@@ -88,3 +88,39 @@ def test_init_state_matches_reference():
     t = init_state(64, "cpu")
     for f in OdometryState._fields:
         np.testing.assert_array_equal(getattr(t, f).numpy(), np.asarray(getattr(j, f)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_gated_step():
+    cfg = jax_config()
+    return jax.jit(lambda s, x, m, dt: jodo.scan_step(s, x, m, dt, cfg.registration,
+                                                      cfg.static.max_voxels, K,
+                                                      enable_failure_gate=True))
+
+
+def test_failure_gate_holds_pose_and_zeroes_step(feats, jax_run):
+    """The repaired fault: scan_step had no enable_failure_gate. A forced
+    3 m jump between consecutive scans is flagged; with the gate the pose
+    holds at the previous estimate and the step is zeroed, as in JAX."""
+    xyz, mask = feats
+    cfg = small_config()
+    jstates, _ = jax_run
+    jumped = np.where(mask[1][:, None], xyz[1] + np.float32([3.0, 0.0, 0.0]), xyz[1])
+    jstate, jout = _jax_gated_step()(jstates[0], jnp.asarray(jumped), jnp.asarray(mask[1]),
+                                     jnp.float32(DT))
+    state = state_from_numpy(jstates[0]._asdict(), "cpu")
+    state, out = scan_step(state, T(jumped), T(mask[1]), DT, cfg.registration,
+                           cfg.static.max_voxels, K, enable_failure_gate=True)
+    assert bool(jout.failure) and bool(out.failure)
+    np.testing.assert_array_equal(out.pose_rot.numpy(), np.asarray(jstates[0].pose_rot))
+    np.testing.assert_array_equal(out.pose_trans.numpy(), np.asarray(jstates[0].pose_trans))
+    np.testing.assert_array_equal(out.step_rot.numpy(), np.eye(3, dtype=np.float32))
+    np.testing.assert_array_equal(out.step_trans.numpy(), np.zeros(3, np.float32))
+    for f in ("pose_rot", "pose_trans", "step_rot", "step_trans", "trans_old"):
+        np.testing.assert_array_equal(getattr(state, f).numpy(), np.asarray(getattr(jstate, f)),
+                                      err_msg=f)
+    # without the gate the same jump moves the pose
+    _, free = scan_step(state_from_numpy(jstates[0]._asdict(), "cpu"), T(jumped), T(mask[1]), DT,
+                        cfg.registration, cfg.static.max_voxels, K)
+    assert bool(free.failure)
+    assert np.linalg.norm(free.pose_trans.numpy() - np.asarray(jstates[0].pose_trans)) > 1.0

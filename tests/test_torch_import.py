@@ -1,5 +1,6 @@
-"""The port runs where JAX does not exist: importing it, its config shim and
-chip_smoke.py, and running one CPU scan_step, must never import jax."""
+"""The port runs where JAX does not exist: importing every module of it, its
+config shim and chip_smoke.py, and running CPU scan_steps, backend_steps and
+a graph solve, must never import jax."""
 
 import os
 import subprocess
@@ -18,6 +19,12 @@ import rolo_tpu_torch
 from rolo_tpu_torch.config import RoloConfig, RegistrationConfig, StaticConfig, load_config
 import chip_smoke  # module only; main() is not run
 from rolo_tpu_torch.frontend.odometry import init_state, scan_step
+import rolo_tpu_torch.bench
+import rolo_tpu_torch.graph.factors, rolo_tpu_torch.graph.solver
+import rolo_tpu_torch.loop.scancontext, rolo_tpu_torch.prior.association
+import rolo_tpu_torch.mapping.backend, rolo_tpu_torch.mapping.keyframes
+import rolo_tpu_torch.mapping.scan2map
+import rolo_tpu_torch.ops.eig3, rolo_tpu_torch.ops.rows
 
 g = torch.Generator().manual_seed(0)
 n = 256
@@ -28,6 +35,19 @@ state = init_state(n, "cpu")
 state, out = scan_step(state, xyz, mask, 0.1, RegistrationConfig(), 512, 10)
 state, out = scan_step(state, xyz, mask, 0.1, RegistrationConfig(), 512, 10)
 assert torch.isfinite(out.pose_trans).all() and torch.isfinite(out.pose_rot).all()
+
+from rolo_tpu_torch.config import load_config
+from rolo_tpu_torch.mapping.backend import backend_step, init_backend, solve_graph_host
+from rolo_tpu_torch.pointcloud.cloud import PaddedCloud
+cfg = load_config("tests/fixtures/sim_bag/config.yaml")
+bstate = init_backend(cfg, "cpu")
+for step in range(2):
+    cloud = PaddedCloud(torch.cat([xyz, torch.zeros(cfg.static.max_surf_points - n, 3)]),
+                        torch.arange(cfg.static.max_surf_points) < n)
+    bstate, bout = backend_step(bstate, cloud, cloud, cloud, out.pose_rot, out.pose_trans, True,
+                                0.2 * step, cfg)
+bstate = solve_graph_host(bstate, cfg)
+assert int(bstate.db.count) >= 1 and torch.isfinite(bstate.xyz).all()
 assert RoloConfig().static.max_feature_points == 8192
 assert not any(m == "jax" or m.startswith(("jax.", "rolo_tpu.")) or m == "rolo_tpu"
                for m in sys.modules if sys.modules[m] is not None)

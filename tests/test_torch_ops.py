@@ -61,6 +61,74 @@ def test_se3_exp_log_compose_inverse():
     np.testing.assert_allclose(c_t.trans.numpy(), np.asarray(c_j.trans), rtol=1e-5, atol=1e-5)
 
 
+def test_so3_rpy_unskew_and_quaternion_helpers():
+    rng = np.random.default_rng(10)
+    rpy = rng.uniform(-1.4, 1.4, (32, 3)).astype(np.float32)
+    r = np.asarray(jso3.rpy_to_matrix(*jnp.asarray(rpy).T))
+    got = torch.stack(so3.matrix_to_rpy(T(r)), -1).numpy()
+    np.testing.assert_allclose(got, np.stack(jso3.matrix_to_rpy(jnp.asarray(r)), -1), **F32)
+    np.testing.assert_allclose(got, rpy, atol=1e-5)
+    w = _omegas(rng, 32)
+    np.testing.assert_array_equal(so3.unskew(so3.skew(T(w))).numpy(), w)
+    q = np.asarray(jso3.exp_quat(jnp.asarray(w)))
+    q2 = q[::-1].copy()
+    v = rng.normal(size=(32, 3)).astype(np.float32)
+    for got, want in [
+        (so3.quat_multiply(T(q), T(q2)), jso3.quat_multiply(jnp.asarray(q), jnp.asarray(q2))),
+        (so3.quat_conjugate(T(q)), jso3.quat_conjugate(jnp.asarray(q))),
+        (so3.quat_rotate(T(q), T(v)), jso3.quat_rotate(jnp.asarray(q), jnp.asarray(v))),
+        (so3.quat_rotate(T(q[0]), T(v)), jso3.quat_rotate(jnp.asarray(q[0]), jnp.asarray(v))),
+    ]:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_se3_surface_matches_reference():
+    rng = np.random.default_rng(11)
+    vec = np.concatenate([rng.normal(size=(8, 3)) * 5, rng.uniform(-1, 1, (8, 3))],
+                         1).astype(np.float32)
+    tj, tt = jse3.SE3.from_xyzrpy(jnp.asarray(vec)), se3.SE3.from_xyzrpy(T(vec))
+    np.testing.assert_allclose(tt.rot.numpy(), np.asarray(tj.rot), **F32)
+    np.testing.assert_allclose(tt.to_xyzrpy().numpy(), np.asarray(tj.to_xyzrpy()), atol=1e-5)
+    m = tt.as_matrix()
+    np.testing.assert_allclose(m.numpy(), np.asarray(tj.as_matrix()), **F32)
+    back = se3.SE3.from_matrix(m)
+    np.testing.assert_array_equal(back.trans.numpy(), tt.trans.numpy())
+    pts = rng.normal(size=(8, 20, 3)).astype(np.float32) * 10
+    np.testing.assert_allclose(tt.apply(T(pts)).numpy(), np.asarray(tj.apply(jnp.asarray(pts))),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(tt.apply(T(pts[:, 0])).numpy(),
+                               np.asarray(tj.apply(jnp.asarray(pts[:, 0]))), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(
+        se3.transform_points(tt.rot, tt.trans, T(pts[0])).numpy(),
+        np.asarray(jse3.transform_points(tj.rot, tj.trans, jnp.asarray(pts[0]))), atol=1e-4)
+    ident = se3.SE3.identity((2,))
+    np.testing.assert_array_equal(ident.rot.numpy(), np.asarray(jse3.SE3.identity((2,)).rot))
+    # Kabsch: recovers a known transform from noisy weighted correspondences
+    src = pts[0]
+    dst = src @ np.asarray(tj.rot[1]).T + np.asarray(tj.trans[1])
+    dst = (dst + rng.normal(0, 0.01, dst.shape)).astype(np.float32)
+    wts = rng.uniform(0.5, 1.0, 20).astype(np.float32)
+    got = se3.rigid_align(T(src), T(dst), T(wts))
+    want = jse3.rigid_align(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(wts))
+    np.testing.assert_allclose(got.rot.numpy(), np.asarray(want.rot), atol=1e-4)
+    np.testing.assert_allclose(got.trans.numpy(), np.asarray(want.trans), atol=1e-3)
+
+
+def test_unrolled_cholesky_matrix_rhs_and_inverse():
+    rng = np.random.default_rng(12)
+    a = rng.normal(size=(32, 6, 6)).astype(np.float32)
+    h = a @ np.swapaxes(a, -1, -2) + 0.5 * np.eye(6, dtype=np.float32)
+    b = rng.normal(size=(32, 6, 5)).astype(np.float32)
+    got = linalg.cholesky_solve_unrolled_mat(T(h), T(b), 6).numpy()
+    np.testing.assert_allclose(got, np.asarray(jlinalg.cholesky_solve_unrolled_mat(
+        jnp.asarray(h), jnp.asarray(b), 6)), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, np.linalg.solve(h.astype(np.float64), b), rtol=1e-3,
+                               atol=1e-3)
+    inv = linalg.inv_psd_unrolled(T(h), 6).numpy()
+    np.testing.assert_allclose(inv, np.asarray(jlinalg.inv_psd_unrolled(jnp.asarray(h), 6)),
+                               rtol=1e-4, atol=1e-4)
+
+
 def _spd6(rng, n):
     a = rng.normal(size=(n, 3, 3)).astype(np.float32)
     m = a @ np.swapaxes(a, -1, -2) + 0.1 * np.eye(3, dtype=np.float32)

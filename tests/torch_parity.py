@@ -22,17 +22,18 @@ torch.set_num_threads(2)  # the suite runs 6 xdist workers
 FIXTURE_CONFIG = os.path.join(os.path.dirname(__file__), "fixtures", "sim_bag", "config.yaml")
 
 
-def small_config():
-    """The port's RoloConfig at the fixture's capacities."""
+def small_config(**overrides):
+    """The port's RoloConfig at the fixture's capacities; `overrides` are
+    dotted keys such as {"mapping.mapping_process_interval": 0.15}."""
     from rolo_tpu_torch.config import load_config
 
-    return load_config(FIXTURE_CONFIG)
+    return load_config(FIXTURE_CONFIG, overrides)
 
 
-def jax_config():
+def jax_config(**overrides):
     from rolo_tpu.config import load_config
 
-    return load_config(FIXTURE_CONFIG)
+    return load_config(FIXTURE_CONFIG, overrides)
 
 
 def small_sim_kwargs(n_scans: int, noise: bool = True) -> dict:
@@ -71,7 +72,7 @@ def jax_sim_frames(n_scans: int, noise: bool = True):
 def _jax_featurizer(cfg):
     import jax
 
-    from rolo_tpu.pointcloud.cloud import concat_clouds
+    from rolo_tpu.pointcloud.cloud import PaddedCloud, concat_clouds
     from rolo_tpu.pointcloud.features import extract_features
     from rolo_tpu.pointcloud.projection import project_scan
 
@@ -85,7 +86,8 @@ def _jax_featurizer(cfg):
         fc = extract_features(img, cfg.features.edge_threshold, cfg.features.surf_threshold,
                               cfg.features.odometry_surf_leaf_size, st.max_corner_points,
                               st.max_surf_points)
-        return concat_clouds(fc.corners, fc.surfaces, st.max_feature_points)
+        raw = PaddedCloud(img.xyz.reshape(-1, 3), img.mask.reshape(-1))
+        return concat_clouds(fc.corners, fc.surfaces, st.max_feature_points), fc, raw
 
     return featurize
 
@@ -100,8 +102,10 @@ def padded_raw(points, ring, rel_time, cap):
     return xyz, rg, rel, mask
 
 
-def jax_features(frames, cfg):
-    """JAX featurization of numpy frames -> (xyz [T, N, 3], mask [T, N])."""
+def jax_feature_parts(frames, cfg):
+    """JAX featurization of numpy frames, per frame: (stacked feature cloud,
+    FeatureClouds, the range image's points as one PaddedCloud), numpy."""
+    import jax
     import jax.numpy as jnp
 
     from rolo_tpu.pointcloud.projection import RawScan
@@ -111,9 +115,14 @@ def jax_features(frames, cfg):
     for f in frames:
         raw = padded_raw(np.asarray(f.points), np.asarray(f.ring), np.asarray(f.rel_time),
                          cfg.static.max_raw_points)
-        c = fz(RawScan(*(jnp.asarray(a) for a in raw)))
-        out.append((np.asarray(c.xyz), np.asarray(c.mask)))
-    return np.stack([o[0] for o in out]), np.stack([o[1] for o in out])
+        out.append(jax.tree_util.tree_map(np.asarray, fz(RawScan(*(jnp.asarray(a) for a in raw)))))
+    return out
+
+
+def jax_features(frames, cfg):
+    """JAX featurization of numpy frames -> (xyz [T, N, 3], mask [T, N])."""
+    parts = jax_feature_parts(frames, cfg)
+    return np.stack([p[0].xyz for p in parts]), np.stack([p[0].mask for p in parts])
 
 
 def torch_features(frames, cfg):
