@@ -18,13 +18,17 @@ Phases, in order; any failure raises, so the exit code is non-zero:
   4. front-end odometry (run_sequence) over consecutive scans of the same
      simulation: ATE against ground truth, and the per-step relative error
      held to the same gate.
-  5. mapping: N_MAP consecutive scans at RoloConfig() capacities; scan_step
-     (both kernels) on every scan, backend_step whenever the 0.15 s mapping
-     cadence fires (as runtime/slam.py does), then one solve_graph_host.
-     Raises unless every pose is finite, at least 10 keyframes were added,
-     every optimized step had >= 50 factors, both kernels' launch counters
-     rose, and the mapped keyframes' ATE is no worse than the front-end's
-     over the same scans.
+  5. one lap of the SLAM loop: N_MAP consecutive scans (the 20 s ellipse
+     and 4 s past the start) at RoloConfig() capacities with loop closure,
+     the ground priors and the ESKF on, every step in runtime/slam.py's
+     order (see `mapping`). Raises unless every pose is finite, at least 10
+     keyframes were added, every optimized step had >= 50 factors, both
+     kernels' launch counters rose, at least one loop factor (endpoints at
+     least sc_num_exclude_recent keyframes apart) and one prior factor were
+     accepted, a graph solve ran with both in the graph, and the mapped
+     keyframes' ATE after the final solve is no worse than the front-end's.
+     Then one traced loop_closure_step, prior cycle and backend_step, and
+     the loop ICP's Kabsch step beside its 1-NN search.
 Then one JSON line lists each kernel: its launches in phase 3's main-path
 run (and in phase 5's, "launches_mapping"), and from phase 2 its worst
 max_abs_err and its ms / plain_ms summed over its cases (one call of each;
@@ -40,28 +44,37 @@ import json
 import statistics
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from rolo_tpu_torch import bench
 from rolo_tpu_torch.config import RoloConfig
+from rolo_tpu_torch.filter.fusion import (fused_pose, init_fusion, on_front_odometry,
+                                          on_mapping_odometry)
 from rolo_tpu_torch.frontend.odometry import init_state, run_sequence, scan_step
-from rolo_tpu_torch.mapping.backend import backend_step, init_backend, solve_graph_host
+from rolo_tpu_torch.loop.closure import detect_loop_distance, kabsch_rotation
+from rolo_tpu_torch.loop.scancontext import detect_loop
+from rolo_tpu_torch.mapping.backend import (backend_step, init_backend, loop_closure_step,
+                                            solve_graph_host)
 from rolo_tpu_torch.ops import cuda_build
 from rolo_tpu_torch.ops.knn_moments import knn_moments, knn_moments_torch
 from rolo_tpu_torch.ops.voxel_join import (INVALID_PACK, keyed_matmul, keyed_matmul_torch,
                                            pack_polar, pack_uniform)
 from rolo_tpu_torch.pointcloud.cloud import PaddedCloud, concat_clouds
+from rolo_tpu_torch.prior.ground import init_live_ground
+from rolo_tpu_torch.prior.vehicle import from_config as vehicle_from_config
 from rolo_tpu_torch.registration.gicp import OFFSETS
+from rolo_tpu_torch.runtime.cycles import ground_update, prior_cycle
 from rolo_tpu_torch.runtime.platform import configure_precision, nvidia_smi_name_power
 from rolo_tpu_torch.sim.dataset import generate_sequence
-from rolo_tpu_torch.voxel.knn import estimate_cov6, moment_table
+from rolo_tpu_torch.voxel.knn import estimate_cov6, knn_indices, moment_table
 from rolo_tpu_torch.voxel.voxelmap import build_voxel_map, polar_coord, uniform_coord
 
 BATCH, STRIDE = bench.BATCH, bench.STRIDE
 N_SEQ = 24  # consecutive scans for the odometry phase (>= BATCH + STRIDE)
-N_MAP = 60  # consecutive scans for the mapping phase
+N_MAP = 240  # consecutive scans for the mapping phase: one lap of the 20 s ellipse and 4 s
 MIN_KEYFRAMES = 10
 MIN_FACTORS = 50  # scan2map's min_factors (rolo_tpu/mapping/scan2map.py:273)
 # max |kernel - plain| per output plane, relative to max(1, max |plain|) of
@@ -228,73 +241,192 @@ def _ate(trans: torch.Tensor, frames) -> float:
     return float(torch.sqrt(((trans.cpu().double() - gt0) ** 2).sum(-1).mean()))
 
 
-def mapping(cfg: RoloConfig, frames, interval: float = 0.1):
-    """Phase 5: the mapping back-end fed by the front-end, scan by scan, as
-    runtime/slam.py:333-384 drives it, then the bucketed graph solve. The
-    frames start at scan 0, so "frame 0's coordinates" are the map's."""
-    reg, st = cfg.registration, cfg.static
-    feats = [bench.featurize_parts(f, cfg) for f in frames]
+def _writable(state):
+    """The state with fresh copies of the stores a loop step or a prior
+    cycle writes in place (they only read the keyframe DB)."""
+    def clone(nt):
+        return type(nt)(*(t.clone() for t in nt))
+
+    g = state.graph
+    return state._replace(graph=g._replace(loops=clone(g.loops), priors=clone(g.priors)),
+                          loop_matched=state.loop_matched.clone(),
+                          prior_queue=clone(state.prior_queue))
+
+
+def _trace(step, pre, sync):
+    """bench.profile_run of `step` on three fresh copies of the pre-step
+    state (the step writes its stores in place)."""
+    copies = [_writable(pre) for _ in range(3)]
+
+    def run():
+        step(copies.pop())
+        sync()
+
+    return bench.profile_run(run)
+
+
+def _stats(ms):
+    return (f"median {statistics.median(ms):.2f} max {max(ms):.2f} over {len(ms)}"
+            if ms else "none")
+
+
+def mapping(cfg: RoloConfig, frames):
+    """Phase 5: one lap of the SLAM loop, scan by scan in the order of
+    runtime/slam.py:333-535: scan_step and the ESKF measurement on every
+    scan; at the mapping cadence backend_step, the mapping odometry and the
+    live ground-map update; the fused pose; loop_closure_step at 1 Hz; the
+    prior cycle at 5 Hz once a mapping step has run; solve_graph_host when
+    a loop or prior step ran since the last solve, at most every
+    graph_solve_check_interval; one more solve at the end, as finalize does.
+    The runtime's background scheduler (at most one task per scan) is not
+    ported: the background steps run inline, in tick order. The frames start
+    at scan 0, so "frame 0's coordinates" are the map's."""
+    st, reg, lc = cfg.static, cfg.registration, cfg.loop
+    dev = frames[0].points.device
     sync = torch.cuda.synchronize if frames[0].points.is_cuda else (lambda: None)
-    front = init_state(st.max_feature_points, frames[0].points.device)
-    state = init_backend(cfg, frames[0].points.device)
-    front_trans, steps = [], []
-    last = -float("inf")
+    feats = [bench.featurize_parts(f, cfg) for f in frames]
+    front = init_state(st.max_feature_points, dev)
+    state = init_backend(cfg, dev)
+    fus = init_fusion(cfg.filter, dev)
+    live = init_live_ground(st.live_ground_slots, st.live_ground_slot_points, dev)
+    vehicle = vehicle_from_config(cfg.prior, dev)
+    front_trans, fused_trans, steps, loops, priors, solves, traces = [], [], [], [], [], [], {}
+    last_map = last_loop = last_prior = -float("inf")
+    last_stamp, dirty, next_solve, ate_before = None, False, 0.0, None
+    kf_scans = []
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def solve(i, hint):
+        nonlocal state, ate_before
+        counts = (int(state.graph.loops.count), int(state.graph.priors.count))
+        if ate_before is None and counts[0] >= 1:
+            ate_before = _ate(state.db.trans[:len(kf_scans)], [frames[k] for k in kf_scans])
+        state, ms = timed(lambda: solve_graph_host(state, cfg, count_hint=hint))
+        solves.append((i, counts, ms))
+
     sync()
     keyed_matmul.launches = 0
     knn_moments.launches = 0
-    t_run = time.perf_counter()
-    for i, (fc, img) in enumerate(feats):
+    t_run, t_traces = time.perf_counter(), 0.0
+    for i, ((fc, img), frame) in enumerate(zip(feats, frames)):
+        stamp = frame.stamp
+        interval = cfg.sensor.scan_period if last_stamp is None else max(stamp - last_stamp, 1e-3)
+        last_stamp = stamp
         feat = concat_clouds(fc.corners, fc.surfaces, st.max_feature_points)
         front, fo = scan_step(front, feat.xyz, feat.mask, interval, reg, st.max_voxels,
                               reg.k_correspondences, enable_failure_gate=reg.enable_failure_gate)
         front_trans.append(fo.pose_trans)
-        stamp = i * interval
-        if stamp - last >= cfg.mapping.mapping_process_interval:
-            last = stamp
+        fus, _ = on_front_odometry(fus, stamp, fo.pose_rot, fo.pose_trans, cfg.filter)
+        if stamp - last_map >= cfg.mapping.mapping_process_interval:
+            last_map = stamp
             raw = PaddedCloud(img.xyz.reshape(-1, 3), img.mask.reshape(-1))
-            sc_cloud = raw if cfg.loop.sc_input_type == "scan_raw" else fc.surfaces
-            sync()
-            t0 = time.perf_counter()
-            state, out = backend_step(state, fc.corners, fc.surfaces, sc_cloud, fo.pose_rot,
-                                      fo.pose_trans, True, stamp, cfg)
-            sync()
-            steps.append((i, out, (time.perf_counter() - t0) * 1e3))
-    t0 = time.perf_counter()
-    state = solve_graph_host(state, cfg, count_hint=len(steps))
-    sync()
-    solve_ms = (time.perf_counter() - t0) * 1e3
-    seconds = time.perf_counter() - t_run
-    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
-    # the same solve again, warm (the first call pays torch.func's and the
-    # linear-algebra libraries' first-use costs); the graph is now solved
-    t0 = time.perf_counter()
-    solve_graph_host(state._replace(db=state.db._replace(rot=state.db.rot.clone(),
-                                                         trans=state.db.trans.clone())),
-                     cfg, count_hint=len(steps))
-    sync()
-    warm_solve_ms = (time.perf_counter() - t0) * 1e3
+            sc_cloud = raw if lc.sc_input_type == "scan_raw" else fc.surfaces
+            (state, out), ms = timed(lambda: backend_step(
+                state, fc.corners, fc.surfaces, sc_cloud, fo.pose_rot, fo.pose_trans, True, stamp,
+                cfg))
+            steps.append((i, out, ms))
+            if bool(out.keyframe_added):
+                kf_scans.append(i)
+            fus = on_mapping_odometry(fus, out.rot, out.trans, fo.pose_rot, fo.pose_trans)
+            if cfg.prior.enable:
+                live = ground_update(live, img, out.rot, out.trans, cfg)
+        fused_trans.append(fused_pose(fus, stamp, cfg.filter).trans)
 
-    kf_scans = [i for i, out, _ in steps if bool(out.keyframe_added)]
+        if lc.enable and stamp - last_loop >= 1.0 / lc.frequency_hz:
+            last_loop = stamp
+            pre = _writable(state)
+            det = detect_loop(state.scdb, lc)
+            cur = torch.clamp(state.db.count - 1, min=0)
+            sc_hit = bool(det.found & (det.index != cur) & (state.db.count > 0))
+            rs_hit = bool(detect_loop_distance(state.db, state.loop_matched,
+                                               lc.history_search_radius,
+                                               lc.history_search_time_diff)[1])
+            n_before = int(state.graph.loops.count)
+            (state, closed), ms = timed(lambda: loop_closure_step(state, cfg))
+            new = [(int(state.graph.loops.i[k]), int(state.graph.loops.j[k]),
+                    float(state.graph.loops.noise_var[k, 0]),
+                    "sc" if float(state.graph.loops.robust_c[k]) > 0 else "rs")
+                   for k in range(n_before, int(state.graph.loops.count))]
+            sc_accepted = any(kind == "sc" for *_, kind in new)
+            loops.append((i, sc_hit, rs_hit and not sc_accepted, new, ms))
+            if bool(closed) and "loop" not in traces and frame.points.is_cuda:
+                t0 = time.perf_counter()
+                traces["loop"] = _trace(lambda s: loop_closure_step(s, cfg), pre, sync)
+                t_traces += time.perf_counter() - t0
+            dirty = True
+        if (cfg.prior.enable and len(steps) >= 1
+                and stamp - last_prior >= 1.0 / cfg.prior.frequency_hz):
+            last_prior = stamp
+            gm = live.as_ground_map()
+            pre = _writable(state)
+            n_queue = int(state.prior_queue.count)
+            (state, matched), ms = timed(lambda: prior_cycle(fus, stamp, state, gm, vehicle, cfg))
+            priors.append((i, int(state.prior_queue.count) > n_queue, bool(matched), ms))
+            if bool(matched) and "prior" not in traces and frame.points.is_cuda:
+                t0 = time.perf_counter()
+                traces["prior"] = _trace(
+                    lambda s: prior_cycle(fus, stamp, s, gm, vehicle, cfg), pre, sync)
+                t_traces += time.perf_counter() - t0
+            dirty = True
+        if dirty and len(steps) >= 1 and stamp >= next_solve:
+            next_solve = stamp + cfg.mapping.graph_solve_check_interval
+            dirty = False
+            solve(i, len(steps) + 1)
+    if dirty or bool(state.pending_solve):
+        solve(len(frames) - 1, None)
+    sync()
+    seconds = time.perf_counter() - t_run - t_traces
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+
     n_kf = int(state.db.count)
-    iters = [int(out.s2m_iterations) for _, out, _ in steps]
-    nfac = [int(out.num_factors) for _, out, _ in steps]
-    degen = [int(bool(out.degenerate)) for _, out, _ in steps]
-    step_ms = [ms for _, _, ms in steps[2:]]  # after the first step and a warm optimizing one
     kf_frames = [frames[i] for i in kf_scans]
     front_ate = _ate(torch.stack([front_trans[i] for i in kf_scans]), kf_frames)
     map_ate = _ate(state.db.trans[:n_kf], kf_frames)
-    print(f"mapping: {len(frames)} scans in {seconds:.2f} s, {len(steps)} mapping steps, "
-          f"{n_kf} keyframes added (scans {kf_scans})")
-    print(f"mapping: s2m_iterations {iters}")
+    nfac = [int(out.num_factors) for _, out, _ in steps]
+    degen = [int(bool(out.degenerate)) for _, out, _ in steps]
+    step_ms = [ms for _, _, ms in steps[2:]]  # after the first step and a warm optimizing one
+    step_ms_60 = [ms for i, _, ms in steps[2:] if i < 60]
+    g = state.graph
+    loop_factors = [(int(g.loops.i[k]), int(g.loops.j[k]), float(g.loops.noise_var[k, 0]))
+                    for k in range(int(g.loops.count))]
+    print(f"mapping: {len(frames)} scans in {seconds:.2f} s (traces excluded), {len(steps)} "
+          f"mapping steps, {n_kf} keyframes added (scans {kf_scans})")
+    print(f"mapping: s2m_iterations {[int(out.s2m_iterations) for _, out, _ in steps]}")
     print(f"mapping: num_factors {nfac}")
     print(f"mapping: degenerate {degen}")
-    print(f"mapping: backend_step wall ms median {statistics.median(step_ms):.2f} "
-          f"max {max(step_ms):.2f} over {len(step_ms)} steps; solve_graph_host {solve_ms:.2f} ms "
-          f"cold, {warm_solve_ms:.2f} ms warm ({n_kf} keyframes)")
-    print(f"mapping: ATE over the {n_kf} keyframe scans: front-end {front_ate:.4f} m, "
-          f"mapped keyframes {map_ate:.4f} m; launches {launches}")
+    print(f"mapping: backend_step wall ms {_stats(step_ms_60)} steps of the first 60 scans; "
+          f"{_stats(step_ms)} steps of the lap")
+    print(f"loop: {len(loops)} ticks at scans {[t[0] for t in loops]}; scan-context detections "
+          f"{sum(t[1] for t in loops)}, radius-search detections {sum(t[2] for t in loops)}, "
+          f"accepted {sum(len(t[3]) for t in loops)}: "
+          f"{[(i, new) for i, _, _, new, _ in loops if new]}")
+    print(f"loop: factors (i, j, fitness) {loop_factors}")
+    print(f"loop: loop_closure_step wall ms {_stats([t[4] for t in loops])}")
+    print(f"prior: {len(priors)} cycles, {sum(t[1] for t in priors)} observations pushed "
+          f"(queue count {int(state.prior_queue.count)}), {int(g.priors.count)} prior factors "
+          f"accepted at scans {[t[0] for t in priors if t[2]]}, factors (i, j) "
+          f"{[(int(g.priors.i[k]), int(g.priors.j[k])) for k in range(int(g.priors.count))]}")
+    print(f"prior: cycle wall ms {_stats([t[3] for t in priors])}; dropped_counts "
+          f"{state.dropped_counts.tolist()} (keyframes, loops, priors, queue overwrites)")
+    print(f"solve: {len(solves)} solves at scans {[t[0] for t in solves]} with (loops, priors) "
+          f"{[t[1] for t in solves]}; wall ms {[round(t[2], 2) for t in solves]}")
+    print(f"mapping: ATE over the {n_kf} keyframe scans: front-end {front_ate:.4f} m, mapped "
+          f"keyframes {map_ate:.4f} m after the final solve"
+          + (f", {ate_before:.4f} m over the keyframes before the first loop solve"
+             if ate_before is not None else "") + f"; launches {launches}")
+    for name, prof in traces.items():
+        print(f"profile of one {'loop_closure_step' if name == 'loop' else 'prior cycle'}: "
+              f"{json.dumps(prof)}")
+
     poses = torch.cat([state.db.rot[:n_kf].reshape(-1), state.db.trans[:n_kf].reshape(-1),
-                       torch.stack(front_trans).reshape(-1), state.xyz, state.rpy])
+                       torch.stack(front_trans).reshape(-1), torch.stack(fused_trans).reshape(-1),
+                       state.xyz, state.rpy])
     if not bool(torch.isfinite(poses).all()):
         raise AssertionError("non-finite mapping poses")
     if n_kf != len(kf_scans) or n_kf < MIN_KEYFRAMES:
@@ -302,12 +434,22 @@ def mapping(cfg: RoloConfig, frames, interval: float = 0.1):
     starved = [(i, n) for (i, out, _), n in zip(steps[1:], nfac[1:]) if n < MIN_FACTORS]
     if starved:
         raise AssertionError(f"optimized steps with < {MIN_FACTORS} factors: {starved}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the mapping path")
+    if not loop_factors:
+        raise AssertionError("the lap closed no loop")
+    near = [(i, j) for i, j, _ in loop_factors if abs(i - j) < lc.sc_num_exclude_recent]
+    if near:
+        raise AssertionError(f"loop factors closer than {lc.sc_num_exclude_recent} keyframes: "
+                             f"{near}")
+    if int(g.priors.count) < 1:
+        raise AssertionError("the lap accepted no prior factor")
+    if not any(n_loops >= 1 and n_priors >= 1 for _, (n_loops, n_priors), _ in solves):
+        raise AssertionError("no graph solve ran with loop and prior factors in the graph")
     if not map_ate <= front_ate:
         raise AssertionError(f"mapped keyframe ATE {map_ate:.4f} m exceeds the front-end's "
                              f"{front_ate:.4f} m over the same scans")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the mapping path")
     if frames[0].points.is_cuda:
         # one more step of the last mapped scan, traced (it rewrites the DB
         # row past the count: the state above is not advanced)
@@ -317,23 +459,40 @@ def mapping(cfg: RoloConfig, frames, interval: float = 0.1):
         rot, trans = state.db.rot[n_kf - 1], state.db.trans[n_kf - 1]
 
         def run():
-            backend_step(state, fc.corners, fc.surfaces, raw, rot, trans, True, i * interval, cfg)
+            backend_step(state, fc.corners, fc.surfaces, raw, rot, trans, True, frames[i].stamp,
+                         cfg)
             sync()
 
         print(f"profile of one backend_step: {json.dumps(bench.profile_run(run))}")
+        kabsch_timing(dev)
     return launches, front_ate, map_ate
+
+
+def kabsch_timing(device, reps: int = 20):
+    """The loop ICP's Kabsch step on the card (an SVD whose info check syncs)
+    beside the same iteration's exact 1-NN search at the loop path's 4,096 x
+    16,384 points."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    h = torch.randn(3, 3, generator=g).to(device)
+    src = (torch.rand(4096, 3, generator=g) * 60 - 30).to(device)
+    tgt = (torch.rand(16384, 3, generator=g) * 60 - 30).to(device)
+    ones = torch.ones(16384, dtype=torch.bool, device=device)
+    print(f"kabsch: {cuda_ms(lambda: kabsch_rotation(h), reps):.3f} ms per call; 1-NN 4096 x "
+          f"16384 {cuda_ms(lambda: knn_indices(src, ones[:4096], tgt, ones, 1), reps):.3f} ms")
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is false)")
+    t_start = time.perf_counter()
     configure_precision()
     smi = nvidia_smi_name_power()
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"nvidia-smi: {smi}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    for name in KERNELS:
-        path, seconds = cuda_build.build(name)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
+        built = dict(zip(KERNELS, pool.map(cuda_build.build, KERNELS)))
+    for name, (path, seconds) in built.items():
         print(f"build {name}: {seconds:.1f} s -> {path.name}")
         for line in cuda_build.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
@@ -367,6 +526,7 @@ def main() -> int:
         {"name": name, **KERNELS[name], "launches": launches[name],
          "launches_mapping": map_launches[name], **summary[name]}
         for name in KERNELS]}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

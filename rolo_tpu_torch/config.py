@@ -37,6 +37,10 @@ _cfg = _load()
 RoloConfig = _cfg.RoloConfig
 RegistrationConfig = _cfg.RegistrationConfig
 StaticConfig = _cfg.StaticConfig
+LoopConfig = _cfg.LoopConfig
+PriorConfig = _cfg.PriorConfig
+FilterConfig = _cfg.FilterConfig
 load_config = _cfg.load_config
 
-__all__ = ["RoloConfig", "RegistrationConfig", "StaticConfig", "load_config"]
+__all__ = ["RoloConfig", "RegistrationConfig", "StaticConfig", "LoopConfig", "PriorConfig",
+           "FilterConfig", "load_config"]

@@ -1,2 +1,2 @@
-"""Scan Context descriptors (counterpart of rolo_tpu/loop; detection and
-ICP verification belong to the loop-closure slice)."""
+"""Scan Context place recognition and loop-closure verification (counterpart
+of rolo_tpu/loop)."""

@@ -1,8 +1,8 @@
-"""Scan Context descriptors and their store, torch port of the descriptor
-half of `rolo_tpu/loop/scancontext.py`: the 20-ring x 60-sector max-z polar
-image of a scan, its ring and sector keys, and the fixed-capacity store the
-back-end appends one descriptor to per keyframe. Loop detection over the
-store (`detect_loop`) belongs to the loop-closure slice.
+"""Scan Context place recognition, torch port of `rolo_tpu/loop/scancontext.py`:
+the 20-ring x 60-sector max-z polar image of a scan, its ring and sector keys,
+the fixed-capacity store the back-end appends one descriptor to per keyframe,
+and `detect_loop` over that store (ring-key top-k candidates, sector-key
+circular-shift alignment, refined cosine distance over the shift window).
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.rows import write_row_
+from ..config import LoopConfig
+from ..ops.rows import read_row, write_row_
 
 
 def make_descriptor(xyz: torch.Tensor, mask: torch.Tensor, num_ring: int = 20,
@@ -79,3 +80,70 @@ def add_descriptor(db: ScanContextDB, desc: torch.Tensor, enable=True) -> ScanCo
     write_row_(db.rkey, idx, ring_key(desc), ok)
     write_row_(db.skey, idx, sector_key(desc), ok)
     return db._replace(count=db.count + ok.to(torch.int32))
+
+
+class LoopDetection(NamedTuple):
+    index: torch.Tensor  # [] int32 matched keyframe (valid iff found)
+    yaw_rad: torch.Tensor  # [] yaw offset of the match
+    distance: torch.Tensor  # [] best scan-context distance
+    found: torch.Tensor  # [] bool
+
+
+def _sc_distance(query: torch.Tensor, cand_shifted: torch.Tensor) -> torch.Tensor:
+    """Mean column cosine distance (scancontext.py:134-146): query [R, S],
+    cand_shifted [..., R, S] -> [...]; columns where either side has zero
+    norm are left out of the mean."""
+    qn = torch.linalg.vector_norm(query, dim=-2)
+    cn = torch.linalg.vector_norm(cand_shifted, dim=-2)
+    dot = torch.einsum("rs,...rs->...s", query, cand_shifted)
+    eff = (qn > 0) & (cn > 0)
+    sim = torch.where(eff, dot / torch.clamp(qn * cn, min=1e-12), 0.0)
+    n_eff = torch.clamp(eff.sum(dim=-1), min=1)
+    return 1.0 - sim.sum(dim=-1) / n_eff
+
+
+def detect_loop(db: ScanContextDB, cfg: LoopConfig = LoopConfig()) -> LoopDetection:
+    """Loop candidate for the newest descriptor (scancontext.py:149-206):
+    the `sc_num_candidates` nearest ring keys among all but the newest
+    `sc_num_exclude_recent`, each aligned by the sector-key circular shift,
+    then refined over +-round(sc_search_ratio / 2 * S) shifts. `torch.topk`
+    may order tied candidates differently from `lax.top_k`; the winner is
+    the first minimum of the refined distances in both."""
+    num_s = db.desc.shape[-1]
+    dev = db.desc.device
+    cur = torch.clamp(db.count - 1, min=0)
+    query, q_rkey, q_skey = read_row(db.desc, cur), read_row(db.rkey, cur), read_row(db.skey, cur)
+
+    eligible = torch.arange(db.capacity, device=dev) < (db.count - cfg.sc_num_exclude_recent)
+    d_rk = torch.where(eligible, torch.sum((db.rkey - q_rkey) ** 2, dim=-1), float("inf"))
+    cand = torch.topk(d_rk, cfg.sc_num_candidates, largest=False).indices  # [C]
+    cand_ok = torch.isfinite(d_rk[cand])
+
+    # circshift(x, s)[c] = x[(c - s) mod S], every shift at once
+    cols = torch.arange(num_s, device=dev)
+    shift_idx = (cols[None, :] - cols[:, None]) % num_s  # [S_shift, S_col]
+    skey_shifted = db.skey[cand][:, shift_idx]  # [C, S_shift, S]
+    vkey_diff = torch.linalg.vector_norm(skey_shifted - q_skey, dim=-1)
+    best_shift = torch.argmin(vkey_diff, dim=-1)  # [C]
+
+    radius = round(0.5 * cfg.sc_search_ratio * num_s)
+    offsets = torch.arange(-radius, radius + 1, device=dev)
+    shifts = (best_shift[:, None] + offsets[None, :]) % num_s  # [C, NS]
+    cand_desc = db.desc[cand]  # [C, R, S]
+    c, ns = shifts.shape
+    gather = (cols[None, None, :] - shifts[:, :, None]) % num_s  # [C, NS, S]
+    desc_shifted = torch.gather(cand_desc[:, None].expand(c, ns, *cand_desc.shape[1:]), -1,
+                                gather[:, :, None, :].expand(c, ns, cand_desc.shape[1], num_s))
+    dist = torch.where(cand_ok[:, None], _sc_distance(query, desc_shifted), float("inf"))
+
+    flat = torch.argmin(dist.reshape(-1))
+    min_dist = dist.reshape(-1)[flat]
+    nn_idx = cand[flat // ns]
+    nn_shift = shifts.reshape(-1)[flat]
+    enough_history = db.count >= cfg.sc_num_exclude_recent + 1
+    return LoopDetection(
+        index=nn_idx.to(torch.int32),
+        yaw_rad=nn_shift.to(query.dtype) * (2.0 * math.pi / num_s),
+        distance=torch.where(enough_history, min_dist, float("inf")),
+        found=enough_history & (min_dist < cfg.sc_dist_threshold),
+    )

@@ -6,32 +6,35 @@ correctPoses).
 initial guess from the front-end increment, submap extraction, scan-to-submap
 GN, keyframe gating, the odometry factor and the scan-context descriptor.
 `solve_graph_host` re-solves the pose graph at the smallest capacity bucket
-that covers the keyframes. The keyframe DB (~0.44 GB at `RoloConfig()`
-capacities), the descriptor store and the odometry factors are written one
-row at a time in place, so a step's state shares its stores with the state
-it came from. The reference's `lax.cond(db.count > 0, optimize, skip)` is one
-host branch per step. Loop closure, priors and their steps belong to later
-slices; the state carries their stores all the same, so a state moves
-between the two packages with `backend_state_from_numpy` /
-`backend_state_to_numpy`.
+that covers the keyframes. `loop_closure_step` (scan-context and
+radius-search detection, ICP verification, 1 Hz), `external_loop_step`,
+`record_prior_observation` and `prior_step` (5 Hz) add the loop and prior
+factors the solve exists for. The keyframe DB (~0.44 GB at `RoloConfig()`
+capacities), the descriptor store, the factor stores, `loop_matched` and the
+prior queue are written one row at a time in place, so a step's state shares
+its stores with the state it came from. Each `lax.cond` of the reference is
+one host branch. A state moves between the two packages with
+`backend_state_from_numpy` / `backend_state_to_numpy`.
 """
 
 from __future__ import annotations
 
 from typing import Mapping, NamedTuple, Tuple
 
-import numpy as np
 import torch
 
 from ..config import RoloConfig
 from ..geometry import so3
 from ..geometry.se3 import SE3
-from ..graph.factors import BetweenFactors, PoseGraph, empty_graph
+from ..graph.factors import PoseGraph, add_between, empty_graph
 from ..graph.solver import solve_pose_graph
+from ..loop import closure as loopmod
 from ..loop import scancontext as sc
-from ..ops.rows import write_row_
+from ..ops.pytree import tree_from_numpy, tree_to_numpy
+from ..ops.rows import read_row, write_row_
 from ..pointcloud.cloud import PaddedCloud
 from ..pointcloud.features import voxel_downsample
+from ..prior import association as priormod
 from ..prior.association import PriorQueue, init_queue
 from .keyframes import (KeyframeDB, add_keyframe, extract_submap, init_db, latest_pose,
                         should_add_keyframe)
@@ -94,6 +97,11 @@ def _rpy_pose(rpy: torch.Tensor, xyz: torch.Tensor) -> SE3:
 
 def _rpy_of(rot: torch.Tensor) -> torch.Tensor:
     return torch.stack(so3.matrix_to_rpy(rot))
+
+
+def _count_drop(counts: torch.Tensor, slot: int, dropped: torch.Tensor) -> torch.Tensor:
+    """dropped_counts with `dropped` (a 0-dim bool) added at `slot`."""
+    return counts + torch.nn.functional.pad(dropped.to(torch.int32)[None], (slot, 3 - slot))
 
 
 def _update_initial_guess(state: BackendState, front_rot, front_trans, odom_available):
@@ -169,8 +177,7 @@ def backend_step(state: BackendState, corner: PaddedCloud, surf: PaddedCloud,
         db=db, graph=graph, scdb=scdb, rpy=_rpy_of(pose.rot), xyz=pose.trans,
         last_front_rot=front_rot, last_front_trans=front_trans,
         has_front=state.has_front | odom_available,
-        dropped_counts=state.dropped_counts + torch.nn.functional.pad(
-            dropped.to(torch.int32)[None], (0, 3)))
+        dropped_counts=_count_drop(state.dropped_counts, 0, dropped))
     return new_state, BackendOutput(
         rot=pose.rot, trans=pose.trans, keyframe_added=add & ~dropped, degenerate=degen,
         s2m_iterations=iters, num_factors=nfac, keyframe_dropped=dropped,
@@ -219,43 +226,154 @@ def solve_graph_host(state: BackendState, cfg: RoloConfig = None,
     return _apply_solution(state, sol.rot, sol.trans)
 
 
-def _flat_fields(nt, prefix: str = ""):
-    for name in nt._fields:
-        value = getattr(nt, name)
-        if hasattr(value, "_fields"):
-            yield from _flat_fields(value, f"{prefix}{name}.")
-        else:
-            yield f"{prefix}{name}", value
+def _insert_loop(state: BackendState, factor: loopmod.LoopFactor) -> BackendState:
+    """Add an accepted loop factor, mark its current keyframe matched and
+    count a drop when the store is full (backend.py:388-396)."""
+    loops = state.graph.loops
+    drop = factor.accepted & (loops.count >= loops.capacity)
+    loops = add_between(loops, factor.i, factor.j, factor.rel_rot, factor.rel_trans,
+                        factor.noise_var, factor.robust_c, enable=factor.accepted)
+    write_row_(state.loop_matched, factor.i, True, factor.accepted)
+    return state._replace(graph=state.graph._replace(loops=loops),
+                          pending_solve=state.pending_solve | factor.accepted,
+                          dropped_counts=_count_drop(state.dropped_counts, 1, drop))
+
+
+def _try_close(state: BackendState, cur, prev_idx, init_yaw, robust: bool, src_cap: int,
+               tgt_cap: int, cfg: RoloConfig) -> loopmod.LoopFactor:
+    """Assemble both submaps and ICP-verify one loop candidate."""
+    lc, leaf = cfg.loop, cfg.mapping.mapping_surf_leaf_size
+    cur_sub = loopmod.assemble_loop_submap(state.db, cur, 0, src_cap, leaf)
+    prev_sub = loopmod.assemble_loop_submap(state.db, prev_idx, lc.history_search_num, tgt_cap,
+                                            leaf)
+    # exact k-NN: the accept / reject fitness must not be approximately scored
+    return loopmod.verify_loop(
+        state.db, cur, prev_idx, cur_sub, prev_sub, init_yaw,
+        max_corr_dist=(150.0 if robust else lc.history_search_radius * 2.0),
+        fitness_threshold=lc.history_fitness_score, robust=robust, approx_knn=False)
+
+
+def loop_closure_step(state: BackendState, cfg: RoloConfig) -> Tuple[BackendState, torch.Tensor]:
+    """One loop-closure pass (backend.py:330-424): scan-context detection,
+    then radius-search detection (which sees the keyframes the first marked
+    matched), per `loop_close_type`; ICP verification and factor insertion.
+    Returns (state, closed_any)."""
+    lc, st = cfg.loop, cfg.static
+    dev = state.xyz.device
+    cur = torch.clamp(state.db.count - 1, min=0)
+    closed = torch.tensor(False, device=dev)
+    if not lc.enable:
+        return state, closed
+    src_cap = min(lc.icp_src_capacity, st.max_submap_points // 2)
+    tgt_cap = min(lc.icp_tgt_capacity, st.max_submap_points)
+    if lc.loop_close_type in ("sc", "all"):
+        det = sc.detect_loop(state.scdb, lc)
+        if bool(det.found & (det.index != cur) & (state.db.count > 0)):
+            factor = _try_close(state, cur, det.index, det.yaw_rad, True, src_cap, tgt_cap, cfg)
+            state = _insert_loop(state, factor)
+            closed = closed | factor.accepted
+    if lc.loop_close_type in ("rs", "all"):
+        prev_idx, found = loopmod.detect_loop_distance(
+            state.db, state.loop_matched, lc.history_search_radius, lc.history_search_time_diff)
+        if bool(found):
+            factor = _try_close(state, cur, prev_idx, 0.0, False, src_cap, tgt_cap, cfg)
+            state = _insert_loop(state, factor)
+            closed = closed | factor.accepted
+    return state, closed
+
+
+def external_loop_step(state: BackendState, time_cur, time_prev, cfg: RoloConfig
+                       ) -> Tuple[BackendState, torch.Tensor]:
+    """Accept one externally detected loop pair given as two stamps
+    (backend.py:427-503): the earliest keyframe at or after `time_cur`, the
+    latest at or before `time_prev`; pairs closer than
+    `history_search_time_diff` are rejected; ICP-verified with the radius
+    search's plain noise. Returns (state, closed)."""
+    lc, st, db = cfg.loop, cfg.static, state.db
+    dev = state.xyz.device
+    time_cur = torch.as_tensor(time_cur, dtype=db.time.dtype, device=dev)
+    time_prev = torch.as_tensor(time_prev, dtype=db.time.dtype, device=dev)
+    idx = torch.arange(db.capacity, device=dev)
+    valid = idx < db.count
+    ge = valid & (db.time >= time_cur)
+    key_cur = torch.where(ge.any(), torch.argmax(ge.to(torch.uint8)),
+                          torch.clamp(db.count.long() - 1, min=0))
+    key_prev = torch.max(torch.where(valid & (db.time <= time_prev), idx, 0))
+    found = ((db.count >= 2) & (torch.abs(time_cur - time_prev) >= lc.history_search_time_diff)
+             & (key_cur != key_prev) & ~read_row(state.loop_matched, key_cur))
+    if not bool(found):
+        return state, torch.tensor(False, device=dev)
+    factor = _try_close(state, key_cur.to(torch.int32), key_prev.to(torch.int32), 0.0, False,
+                        st.max_submap_points // 2, st.max_submap_points, cfg)
+    return _insert_loop(state, factor), factor.accepted
+
+
+def prior_step(state: BackendState, ground_now: PaddedCloud, cfg: RoloConfig
+               ) -> Tuple[BackendState, torch.Tensor]:
+    """One prior-association pass (backend.py:506-579): the xy gate over the
+    whole queue at once, then the ICP and the remaining gates on the single
+    nearest eligible entry. Returns (state, matched_any)."""
+    q, db = state.prior_queue, state.db
+    dev = state.xyz.device
+    cur = torch.clamp(db.count - 1, min=0)
+    cur_rot, cur_trans = read_row(db.rot, cur), read_row(db.trans, cur)
+    linked_all = torch.clamp(q.linked_key.long(), max=db.capacity - 1)
+    prior_xy = ((db.rot[linked_all] @ q.rel_trans[..., None])[..., 0]
+                + db.trans[linked_all])[:, :2]
+    d2 = torch.sum((prior_xy - cur_trans[:2]) ** 2, dim=-1)
+    eligible = (q.valid & (torch.arange(q.capacity, device=dev) < q.count)
+                & (q.linked_key != cur) & (d2 < cfg.prior.near_prior_radius ** 2)
+                & (db.count > 0))
+    score = torch.where(eligible, d2, float("inf"))
+    pick = torch.argmin(score)
+    if not bool(torch.isfinite(read_row(score, pick))):
+        return state, torch.tensor(False, device=dev)
+    linked = read_row(linked_all, pick)
+    factor = priormod.associate_prior(
+        read_row(q.rel_rot, pick), read_row(q.rel_trans, pick), read_row(q.linked_key, pick),
+        PaddedCloud(read_row(q.patch_xyz, pick), read_row(q.patch_mask, pick)), True,
+        read_row(db.rot, linked), read_row(db.trans, linked), cur, cur_rot, cur_trans,
+        ground_now, cfg.prior, approx_knn=cfg.mapping.approx_knn)
+    priors = state.graph.priors
+    drop = factor.accepted & (priors.count >= priors.capacity)
+    priors = add_between(priors, factor.i, factor.j, factor.rel_rot, factor.rel_trans,
+                         factor.noise_var, enable=factor.accepted)
+    return state._replace(graph=state.graph._replace(priors=priors),
+                          pending_solve=state.pending_solve | factor.accepted,
+                          dropped_counts=_count_drop(state.dropped_counts, 2, drop)
+                          ), factor.accepted
+
+
+def record_prior_observation(state: BackendState, obs: priormod.PriorObservation,
+                             obs_time=None, cfg: RoloConfig = None) -> BackendState:
+    """priorInfoHandler (backend.py:582-615): store the observation relative
+    to the latest keyframe. With `obs_time` the reference's gates apply: more
+    than 10 keyframes, within 10 ms of the latest keyframe's stamp, and at
+    least `synced_interval` after the last accepted prior."""
+    db, q = state.db, state.prior_queue
+    cur = torch.clamp(db.count - 1, min=0)
+    enable = db.count > 0
+    if obs_time is not None:
+        obs_time = torch.as_tensor(obs_time, dtype=db.time.dtype, device=db.time.device)
+        synced = cfg.prior.synced_interval if cfg is not None else 0.0
+        enable = (enable & (db.count > 10)
+                  & (torch.abs(obs_time - read_row(db.time, cur)) < 1e-2)
+                  & (obs_time - q.last_time >= synced))
+    wrapped = enable & obs.success & (q.count >= q.capacity)
+    q = priormod.push_prior(q, obs, cur, read_row(db.rot, cur), read_row(db.trans, cur),
+                            enable=enable, obs_time=obs_time)
+    return state._replace(prior_queue=q,
+                          dropped_counts=_count_drop(state.dropped_counts, 3, wrapped))
 
 
 def backend_state_to_numpy(state) -> dict:
     """A BackendState (this package's or the JAX package's) as numpy arrays
     keyed by field path, nested NamedTuples flattened: "db.rot",
     "graph.loops.i", "rpy", ..."""
-    out = {}
-    for key, value in _flat_fields(state):
-        if isinstance(value, torch.Tensor):
-            value = value.detach().cpu()
-        out[key] = np.asarray(value)
-    return out
+    return tree_to_numpy(state)
 
 
 def backend_state_from_numpy(arrays: Mapping, device) -> BackendState:
     """A BackendState on `device` from `backend_state_to_numpy`'s layout,
     with the same shapes and dtypes (writable copies)."""
-
-    def build(cls, prefix):
-        fields = {}
-        for name in cls._fields:
-            sub = _NESTED.get((cls, name))
-            key = f"{prefix}{name}"
-            fields[name] = (build(sub, key + ".") if sub is not None
-                            else torch.tensor(np.array(arrays[key]), device=device))
-        return cls(**fields)
-
-    return build(BackendState, "")
-
-
-_NESTED = {(BackendState, "db"): KeyframeDB, (BackendState, "graph"): PoseGraph,
-           (BackendState, "scdb"): sc.ScanContextDB, (BackendState, "prior_queue"): PriorQueue,
-           (PoseGraph, "loops"): BetweenFactors, (PoseGraph, "priors"): BetweenFactors}
+    return tree_from_numpy(BackendState, arrays, device)

@@ -11,7 +11,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..geometry.se3 import SE3
-from ..ops.rows import write_row_
+from ..ops.rows import read_row, write_row_
 from ..pointcloud.cloud import PaddedCloud
 from ..pointcloud.features import voxel_downsample
 
@@ -69,8 +69,8 @@ def add_keyframe(db: KeyframeDB, pose: SE3, time, corner: PaddedCloud, surf: Pad
 
 def latest_pose(db: KeyframeDB) -> SE3:
     """The last keyframe's pose (the first slot while the DB is empty)."""
-    i = torch.clamp(db.count.long() - 1, min=0).reshape(1)
-    return SE3(db.rot.index_select(0, i)[0], db.trans.index_select(0, i)[0])
+    i = torch.clamp(db.count - 1, min=0)
+    return SE3(read_row(db.rot, i), read_row(db.trans, i))
 
 
 def should_add_keyframe(db: KeyframeDB, pose: SE3, dist_threshold: float,

@@ -1,0 +1,52 @@
+"""Nested NamedTuple states to and from flat numpy dictionaries.
+
+The same layout serves both packages: a state of the JAX package, flattened
+here, rebuilds as the port's state of the same class name, and back, so a
+sequence started in one package can continue in the other. Keys are field
+paths with nested tuples flattened ("db.rot", "filter.cov").
+"""
+
+from __future__ import annotations
+
+import typing
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _flat_fields(nt, prefix: str = ""):
+    for name in nt._fields:
+        value = getattr(nt, name)
+        if hasattr(value, "_fields"):
+            yield from _flat_fields(value, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", value
+
+
+def tree_to_numpy(state) -> dict:
+    """A NamedTuple state (this package's or the JAX package's) as numpy
+    arrays keyed by field path. The arrays are copies: the port updates its
+    stores in place."""
+    out = {}
+    for key, value in _flat_fields(state):
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu()
+        out[key] = np.array(value)
+    return out
+
+
+def tree_from_numpy(cls, arrays: Mapping, device, prefix: str = ""):
+    """An instance of the NamedTuple `cls` on `device` from `tree_to_numpy`'s
+    layout, with the same shapes and dtypes (writable copies). Fields whose
+    annotation is itself a NamedTuple are rebuilt recursively."""
+    hints = typing.get_type_hints(cls)
+    fields = {}
+    for name in cls._fields:
+        sub = hints.get(name)
+        key = f"{prefix}{name}"
+        if isinstance(sub, type) and issubclass(sub, tuple) and hasattr(sub, "_fields"):
+            fields[name] = tree_from_numpy(sub, arrays, device, key + ".")
+        else:
+            fields[name] = torch.tensor(np.array(arrays[key]), device=device)
+    return cls(**fields)

@@ -1,2 +1,2 @@
-"""Padded clouds, range-image projection and LOAM features (counterpart
-of rolo_tpu/pointcloud)."""
+"""Padded clouds, range-image projection, LOAM features and ground
+segmentation (counterpart of rolo_tpu/pointcloud)."""

@@ -1,2 +1,2 @@
-"""Ground-prior queue state (counterpart of rolo_tpu/prior; the prior stack
-itself belongs to the prior slice)."""
+"""Ground-prior stack: ground map, vehicle contact solver, prior queue and
+association (counterpart of rolo_tpu/prior)."""

@@ -13,10 +13,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Iterator, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .lidar import LidarModel, simulate_scan, velodyne16, velodyne32
-from .scene import Scene, default_scene, loop_trajectory_pose
+from .scene import Scene, default_scene, loop_trajectory_pose, terrain_height
 
 
 @dataclass(frozen=True)
@@ -93,3 +94,16 @@ def generate_sequence(cfg: SimConfig, device, scene: Optional[Scene] = None) -> 
         m = scan.mask
         yield SimFrame(i * (1.0 / cfg.scan_rate_hz), scan.xyz[m], scan.ring[m], scan.rel_time[m],
                        gt_rot, gt_trans)
+
+
+def ground_map_points(cfg: SimConfig, device, scene: Optional[Scene] = None,
+                      spacing: float = 0.5, margin: float = 8.0) -> torch.Tensor:
+    """Terrain samples [N, 3] on a `spacing` grid covering the trajectory
+    with `margin` to spare: the external ground map the prior stack can
+    consume (dataset.py:116-127)."""
+    scene = make_scene(cfg, device) if scene is None else scene
+    ext = max(cfg.radius_x, cfg.radius_y) + margin
+    xs = np.arange(-ext, ext, spacing, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, xs)
+    xy = torch.as_tensor(np.column_stack([gx.ravel(), gy.ravel()]), device=device)
+    return torch.cat([xy, terrain_height(scene, xy)[:, None]], dim=1)

@@ -1,5 +1,6 @@
 """On-card checks of the port's CUDA kernels against their plain torch
-versions, and of the CUDA registration path against the CPU one.
+versions, and of the CUDA registration, mapping, loop-closure and prior
+paths against the same calls on CPU tensors.
 
 These need an NVIDIA GPU with nvcc; elsewhere they skip. They import no JAX,
 so on the GPU machine (which has none) run them without the suite's
@@ -171,3 +172,160 @@ def test_backend_step_cuda_matches_plain(cuda):
         assert np.degrees(np.arccos(min(1.0, cos))) < 0.3
         assert float(torch.linalg.vector_norm(t - wt)) < 0.02
         assert added == wadded
+
+
+# The third slice on the card: loop closure, the ground priors and the
+# contact solver against the same calls on CPU tensors. Between the two
+# devices the 1-NN matmuls, the plane fits and the graph sums round in other
+# orders, so the ICP tolerances of tests/test_torch_loop.py apply.
+ICP_ROT_RAD, ICP_TRANS_M, FITNESS_REL = 1e-3, 1e-3, 1e-3
+
+
+def _rot_diff_rad(r1, r2):
+    from torch_parity import rot_diff_rad
+
+    return float(np.max(rot_diff_rad(r1.cpu().numpy(), r2.cpu().numpy())))
+
+
+def test_icp_cuda_matches_cpu(cuda):
+    from torch_parity import structured_world
+
+    from rolo_tpu_torch.geometry import so3
+    from rolo_tpu_torch.loop.closure import icp_point2point
+    from rolo_tpu_torch.pointcloud.cloud import PaddedCloud
+
+    _, surf = structured_world()
+    rng = np.random.default_rng(4)
+    src = torch.tensor(surf + 20.0)  # world-scale coordinates
+    rot = so3.exp(torch.tensor([0.0, 0.01, 0.08]))
+    tgt = src @ rot.T + torch.tensor([0.3, -0.2, 0.05]) + torch.tensor(
+        rng.normal(0, 0.02, surf.shape), dtype=torch.float32)
+    mask = torch.ones(len(surf), dtype=torch.bool)
+    args = dict(max_corr_dist=5.0, max_iterations=100)
+    want = icp_point2point(PaddedCloud(src, mask), PaddedCloud(tgt, mask), torch.eye(3),
+                           torch.zeros(3), **args)
+    got = icp_point2point(PaddedCloud(src.to(cuda), mask.to(cuda)),
+                          PaddedCloud(tgt.to(cuda), mask.to(cuda)), torch.eye(3, device=cuda),
+                          torch.zeros(3, device=cuda), **args)
+    assert bool(got.converged) == bool(want.converged)
+    assert _rot_diff_rad(got.rot, want.rot) < ICP_ROT_RAD
+    assert float((got.trans.cpu() - want.trans).norm()) < ICP_TRANS_M
+    assert abs(float(got.fitness) - float(want.fitness)) <= FITNESS_REL * float(want.fitness)
+
+
+def _loops(state):
+    g = state.graph.loops
+    return [(int(g.i[k]), int(g.j[k])) for k in range(int(g.count))]
+
+
+def _same_loops(got, want):
+    assert _loops(got) == _loops(want)
+    n = int(want.graph.loops.count)
+    g, w = got.graph.loops, want.graph.loops
+    assert torch.equal(got.loop_matched.cpu(), want.loop_matched)
+    assert float((g.rel_trans[:n].cpu() - w.rel_trans[:n]).abs().max()) < ICP_TRANS_M
+    for k in range(n):
+        assert _rot_diff_rad(g.rel_rot[k], w.rel_rot[k]) < ICP_ROT_RAD
+    assert torch.allclose(g.noise_var[:n].cpu(), w.noise_var[:n], rtol=FITNESS_REL)
+
+
+@pytest.mark.parametrize("kind", ["all", "rs"])
+def test_loop_closure_step_cuda_matches_cpu(cuda, kind):
+    """The out-and-back return closes the same loop (13, 0) on both devices."""
+    from torch_parity import loop_test_config, port_out_and_back
+
+    from rolo_tpu_torch.mapping.backend import loop_closure_step
+
+    cfg = loop_test_config(kind)
+    want, wclosed = loop_closure_step(port_out_and_back(cfg, "cpu"), cfg)
+    got, closed = loop_closure_step(port_out_and_back(cfg, cuda), cfg)
+    assert bool(closed) == bool(wclosed) and _loops(got) == [(13, 0)]
+    _same_loops(got, want)
+
+
+def test_external_loop_step_cuda_matches_cpu(cuda):
+    from torch_parity import loop_test_config, port_out_and_back
+
+    from rolo_tpu_torch.mapping.backend import external_loop_step
+
+    cfg = loop_test_config("rs")
+    want, wclosed = external_loop_step(port_out_and_back(cfg, "cpu"), 13.0, 0.0, cfg)
+    got, closed = external_loop_step(port_out_and_back(cfg, cuda), 13.0, 0.0, cfg)
+    assert bool(closed) and bool(wclosed)
+    _same_loops(got, want)
+
+
+@pytest.mark.parametrize("x,y,yaw", [(11.0, -6.5, 0.7), (-15.0, 9.0, -2.4)])
+def test_solve_pose_cuda_matches_cpu(cuda, x, y, yaw):
+    """The contact solver on the simulator's terrain (z / roll / pitch to
+    1e-4, as tests/test_torch_prior.py holds it against the reference)."""
+    from rolo_tpu_torch.config import PriorConfig
+    from rolo_tpu_torch.prior.ground import GroundMap
+    from rolo_tpu_torch.prior.vehicle import from_config, solve_pose
+    from rolo_tpu_torch.sim.dataset import SimConfig, ground_map_points
+
+    cfg = PriorConfig(tolerance_roll=0.5, tolerance_pitch=0.5)
+    pts = ground_map_points(SimConfig(period=20.0, roughness=1.2), "cpu")
+    mask = torch.ones(len(pts), dtype=torch.bool)
+    want = solve_pose(GroundMap(pts, mask), from_config(cfg), x, y, yaw, cfg)
+    got = solve_pose(GroundMap(pts.to(cuda), mask.to(cuda)), from_config(cfg, cuda), x, y, yaw,
+                     cfg)
+    assert bool(got.success) == bool(want.success) and bool(got.converged)
+    for field in ("z", "roll", "pitch"):
+        assert abs(float(getattr(got, field)) - float(getattr(want, field))) < 1e-4, field
+
+
+def _prior_scenario(device):
+    """tests/test_torch_lap.py's scenario without JAX: the out-and-back
+    state with a prior at (1, 0) linked to keyframe 1, a plane ground at the
+    structured world's z = -1.5, and a fusion state fed the keyframes."""
+    from torch_parity import loop_test_config, port_out_and_back
+
+    from rolo_tpu_torch.filter.fusion import init_fusion, on_front_odometry, on_mapping_odometry
+    from rolo_tpu_torch.prior.association import compute_prior, push_prior
+    from rolo_tpu_torch.prior.ground import GroundMap
+    from rolo_tpu_torch.prior.vehicle import from_config
+
+    cfg = loop_test_config("all")
+    cfg = cfg.replace(prior=type(cfg.prior)(near_prior_radius=2.0, fitness_score=0.05,
+                                            tolerance_roll=0.5, tolerance_pitch=0.5))
+    rng = np.random.default_rng(0)
+    pts = np.column_stack([rng.uniform(-12, 12, (8192, 2)),
+                           -1.5 + rng.normal(0, 0.005, 8192)]).astype(np.float32)
+    gm = GroundMap(torch.tensor(pts, device=device),
+                   torch.ones(8192, dtype=torch.bool, device=device))
+    state = port_out_and_back(cfg, device)
+    vehicle = from_config(cfg.prior, device)
+    obs = compute_prior(gm, vehicle, 1.0, 0.0, float(np.pi), cfg.prior,
+                        state.prior_queue.patch_xyz.shape[1])
+    db = state.db
+    state = state._replace(prior_queue=push_prior(state.prior_queue, obs, 1, db.rot[1],
+                                                  db.trans[1]))
+    fus = init_fusion(cfg.filter, device)
+    for i in range(int(db.count)):
+        fus, _ = on_front_odometry(fus, float(i), db.rot[i], db.trans[i], cfg.filter)
+    fus = on_mapping_odometry(fus, db.rot[13], db.trans[13], db.rot[13], db.trans[13])
+    return cfg, state, fus, gm, vehicle
+
+
+def test_prior_cycle_cuda_matches_cpu(cuda):
+    """One prior cycle, then a graph solve: the same prior factor (1, 13)
+    and the same queue on both devices, the solved poses within the ICP
+    tolerance."""
+    from rolo_tpu_torch.mapping.backend import solve_graph_host
+    from rolo_tpu_torch.runtime.cycles import prior_cycle
+
+    results = []
+    for device in ("cpu", cuda):
+        cfg, state, fus, gm, vehicle = _prior_scenario(device)
+        state, matched = prior_cycle(fus, 13.0, state, gm, vehicle, cfg)
+        results.append((bool(matched), state, solve_graph_host(state, cfg)))
+    (wm, want, wsolved), (m, got, solved) = results
+    assert m and wm
+    g, w = got.graph.priors, want.graph.priors
+    assert (int(g.count), int(g.i[0]), int(g.j[0])) == (int(w.count), 1, 13)
+    assert int(got.prior_queue.count) == int(want.prior_queue.count) == 2
+    assert float((g.rel_trans[0].cpu() - w.rel_trans[0]).abs().max()) < ICP_TRANS_M
+    assert torch.allclose(g.noise_var[0].cpu(), w.noise_var[0], rtol=FITNESS_REL)
+    n = int(solved.db.count)
+    assert float((solved.db.trans[:n].cpu() - wsolved.db.trans[:n]).abs().max()) < ICP_TRANS_M

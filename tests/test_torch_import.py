@@ -1,6 +1,7 @@
 """The port runs where JAX does not exist: importing every module of it, its
-config shim and chip_smoke.py, and running CPU scan_steps, backend_steps and
-a graph solve, must never import jax."""
+config shim and chip_smoke.py, and running CPU scan_steps, backend_steps, a
+loop-closure pass, a prior cycle, ESKF fusion and a graph solve, must never
+import jax."""
 
 import os
 import subprocess
@@ -24,7 +25,11 @@ import rolo_tpu_torch.graph.factors, rolo_tpu_torch.graph.solver
 import rolo_tpu_torch.loop.scancontext, rolo_tpu_torch.prior.association
 import rolo_tpu_torch.mapping.backend, rolo_tpu_torch.mapping.keyframes
 import rolo_tpu_torch.mapping.scan2map
-import rolo_tpu_torch.ops.eig3, rolo_tpu_torch.ops.rows
+import rolo_tpu_torch.ops.eig3, rolo_tpu_torch.ops.rows, rolo_tpu_torch.ops.pytree
+import rolo_tpu_torch.loop.closure, rolo_tpu_torch.pointcloud.ground_seg
+import rolo_tpu_torch.prior.ground, rolo_tpu_torch.prior.vehicle
+import rolo_tpu_torch.filter.eskf, rolo_tpu_torch.filter.fusion
+import rolo_tpu_torch.runtime.cycles, rolo_tpu_torch.sim.dataset
 
 g = torch.Generator().manual_seed(0)
 n = 256
@@ -46,6 +51,18 @@ for step in range(2):
                         torch.arange(cfg.static.max_surf_points) < n)
     bstate, bout = backend_step(bstate, cloud, cloud, cloud, out.pose_rot, out.pose_trans, True,
                                 0.2 * step, cfg)
+from rolo_tpu_torch.filter.fusion import init_fusion, on_front_odometry, on_mapping_odometry
+from rolo_tpu_torch.mapping.backend import loop_closure_step
+from rolo_tpu_torch.prior.ground import GroundMap
+from rolo_tpu_torch.prior.vehicle import from_config
+from rolo_tpu_torch.runtime.cycles import prior_cycle
+bstate, _ = loop_closure_step(bstate, cfg)
+fus = init_fusion(cfg.filter)
+for step in range(3):
+    fus, _ = on_front_odometry(fus, 0.1 * step, out.pose_rot, out.pose_trans, cfg.filter)
+fus = on_mapping_odometry(fus, bout.rot, bout.trans, out.pose_rot, out.pose_trans)
+ground = GroundMap(xyz.repeat(16, 1), torch.ones(16 * n, dtype=torch.bool))  # >= the patch
+bstate, _ = prior_cycle(fus, 0.2, bstate, ground, from_config(cfg.prior), cfg)
 bstate = solve_graph_host(bstate, cfg)
 assert int(bstate.db.count) >= 1 and torch.isfinite(bstate.xyz).all()
 assert RoloConfig().static.max_feature_points == 8192

@@ -61,6 +61,18 @@ def rot_err_deg(r1, r2) -> np.ndarray:
     return np.degrees(np.arccos(np.clip(cos, -1, 1)))
 
 
+def rot_diff_rad(r1, r2) -> np.ndarray:
+    """Rotation angle of r1^T r2 in radians from its antisymmetric part,
+    accurate near zero where the trace form bottoms out at ~1e-4 rad for
+    f32 matrices."""
+    r1 = np.asarray(r1, np.float64)
+    r2 = np.asarray(r2, np.float64)
+    m = np.swapaxes(r1, -1, -2) @ r2
+    v = np.stack([m[..., 2, 1] - m[..., 1, 2], m[..., 0, 2] - m[..., 2, 0],
+                  m[..., 1, 0] - m[..., 0, 1]], axis=-1) / 2
+    return np.arcsin(np.clip(np.linalg.norm(v, axis=-1), 0.0, 1.0))
+
+
 def jax_sim_frames(n_scans: int, noise: bool = True):
     """The JAX simulator's frames as numpy arrays."""
     from rolo_tpu.sim import SimConfig, generate_sequence
@@ -152,3 +164,126 @@ def point_set_match(a, b, tol):
         return 1.0 if len(b) == 0 else 0.0
     d2 = ((a[:, None, :].astype(np.float64) - b[None, :, :]) ** 2).sum(-1)
     return float((d2.min(axis=1) <= tol * tol).mean())
+
+
+def port_config(jcfg):
+    """The port's RoloConfig with the values of a JAX package RoloConfig
+    (the two packages load the same dataclasses as separate classes)."""
+    from rolo_tpu_torch import config as pc
+
+    def convert(value):
+        if dataclasses.is_dataclass(value):
+            cls = getattr(pc._cfg, type(value).__name__)
+            return cls(**{f.name: convert(getattr(value, f.name))
+                          for f in dataclasses.fields(value)})
+        return value
+
+    return convert(jcfg)
+
+
+def structured_world(seed=0):
+    """tests/test_backend.py's structured world (:39-59), the same draws:
+    vertical corner lines, a ground plane at z = -1.5 and two walls, as
+    numpy (corner points, surface points)."""
+    rng = np.random.default_rng(seed)
+    corners = []
+    for cx, cy in [(5, 5), (10, -4), (16, 6), (22, -5), (28, 4), (3, -6), (14, 1), (25, 8)]:
+        z = rng.uniform(-1, 2, (60, 1))
+        pts = np.column_stack([np.full((60, 1), float(cx)), np.full((60, 1), float(cy)), z])
+        corners.append(pts + rng.normal(0, 0.01, pts.shape))
+    surfs = []
+    gxy = rng.uniform([-5, -10], [35, 10], (900, 2))
+    surfs.append(np.column_stack([gxy, np.full(900, -1.5) + rng.normal(0, 0.01, 900)]))
+    wx = rng.uniform(-5, 35, 400)
+    wz = rng.uniform(-1, 2.5, 400)
+    surfs.append(np.column_stack([wx, np.full(400, 8.0) + rng.normal(0, 0.01, 400), wz]))
+    surfs.append(np.column_stack([wx, np.full(400, -8.0) + rng.normal(0, 0.01, 400), wz]))
+    return np.concatenate(corners).astype(np.float32), np.concatenate(surfs).astype(np.float32)
+
+
+def _out_and_back_scans(corner_cap, surf_cap, drift, n_out, n_back):
+    """Per keyframe: (stored translation, corner points, surface points) in
+    the sensor frame (identity rotation), within 25 m of the sensor."""
+    corner_w, surf_w = structured_world()
+    xs = list(np.linspace(0, 6, n_out)) + list(np.linspace(6, 0.2, n_back))
+    out = []
+    for i, x in enumerate(xs):
+        trans = np.array([x, 0.0, 0.0], np.float32)
+
+        def local(world, cap):
+            pts = world - trans
+            return pts[np.linalg.norm(pts, axis=1) < 25.0][:cap]
+
+        stored = trans + np.float32(i) * np.asarray(drift, np.float32)
+        out.append((stored, local(corner_w, corner_cap), local(surf_w, surf_cap)))
+    return out
+
+
+def out_and_back(jcfg, drift=(0.0, 0.03, 0.0), n_out=7, n_back=7):
+    """A JAX BackendState on the structured world: keyframes every metre
+    out along x and back (stamps 0, 1, 2, ... s), each stored at its true
+    pose plus `drift` per keyframe, with their clouds, scan-context
+    descriptors and odometry factors, built with add_keyframe (no
+    scan-to-map step). `port_out_and_back` builds the same in the port."""
+    import jax.numpy as jnp
+
+    from rolo_tpu.geometry.se3 import SE3
+    from rolo_tpu.loop import scancontext as jsc
+    from rolo_tpu.mapping import backend as jbk
+    from rolo_tpu.mapping.keyframes import add_keyframe
+    from rolo_tpu.pointcloud.cloud import PaddedCloud as JCloud
+
+    st, lc = jcfg.static, jcfg.loop
+    state = jbk.init_backend(jcfg)
+    db, scdb = state.db, state.scdb
+    scans = _out_and_back_scans(st.max_corner_points, st.max_surf_points, drift, n_out, n_back)
+    for i, (stored, corner, surf) in enumerate(scans):
+        c = JCloud.from_points(corner, st.max_corner_points)
+        s = JCloud.from_points(surf, st.max_surf_points)
+        db = add_keyframe(db, SE3(jnp.eye(3), jnp.asarray(stored)), jnp.asarray(float(i)), c, s)
+        scdb = jsc.add_descriptor(scdb, jsc.make_descriptor(
+            s.xyz, s.mask, lc.sc_num_ring, lc.sc_num_sector, lc.sc_max_radius,
+            lc.sc_lidar_height))
+    odom = np.asarray(state.graph.odom_rel_trans).copy()
+    for k in range(1, len(scans)):
+        odom[k] = scans[k][0] - scans[k - 1][0]
+    graph = state.graph._replace(first_trans=jnp.asarray(scans[0][0]),
+                                 odom_rel_trans=jnp.asarray(odom))
+    return state._replace(db=db, scdb=scdb, graph=graph, xyz=jnp.asarray(scans[-1][0]))
+
+
+def port_out_and_back(cfg, device, drift=(0.0, 0.03, 0.0), n_out=7, n_back=7):
+    """`out_and_back` in the port, on `device`, without JAX."""
+    from rolo_tpu_torch.geometry.se3 import SE3
+    from rolo_tpu_torch.loop import scancontext as sc
+    from rolo_tpu_torch.mapping import backend as bk
+    from rolo_tpu_torch.mapping.keyframes import add_keyframe
+    from rolo_tpu_torch.pointcloud.cloud import PaddedCloud
+
+    st, lc = cfg.static, cfg.loop
+    state = bk.init_backend(cfg, device)
+    db, scdb = state.db, state.scdb
+    scans = _out_and_back_scans(st.max_corner_points, st.max_surf_points, drift, n_out, n_back)
+    eye = torch.eye(3, device=device)
+    for i, (stored, corner, surf) in enumerate(scans):
+        c = PaddedCloud.from_points(corner, st.max_corner_points, device)
+        s = PaddedCloud.from_points(surf, st.max_surf_points, device)
+        db = add_keyframe(db, SE3(eye, torch.as_tensor(stored, device=device)), float(i), c, s)
+        scdb = sc.add_descriptor(scdb, sc.make_descriptor(
+            s.xyz, s.mask, lc.sc_num_ring, lc.sc_num_sector, lc.sc_max_radius,
+            lc.sc_lidar_height))
+    graph = state.graph
+    for k in range(1, len(scans)):
+        graph.odom_rel_trans[k] = torch.as_tensor(scans[k][0] - scans[k - 1][0])
+    graph = graph._replace(first_trans=torch.as_tensor(scans[0][0], device=device))
+    return state._replace(db=db, scdb=scdb, graph=graph,
+                          xyz=torch.as_tensor(scans[-1][0], device=device))
+
+
+def loop_test_config(kind="all"):
+    """The port's config for the out-and-back loop scenarios: the fixture's
+    capacities with tests/test_backend.py's SMALL loop settings."""
+    return small_config(**{"loop.enable": True, "loop.loop_close_type": kind,
+                           "loop.history_search_radius": 5.0,
+                           "loop.history_search_time_diff": 3.0, "loop.history_search_num": 2,
+                           "loop.history_fitness_score": 0.3, "loop.sc_num_exclude_recent": 3})
