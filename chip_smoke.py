@@ -9,7 +9,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
   1. build both CUDA kernels from rolo_tpu_torch/csrc with nvcc (sm_90a).
   2. each kernel against its plain torch version on the card, at the main
      path's shapes (B=16, 8192 feature points, RoloConfig() capacities):
-     errors with their tolerance, and warm median times (CUDA events).
+     errors with their tolerance (K2's count plane bit for bit), the same
+     bits from a second call, and warm medians: the kernel's device time
+     per call (replayed CUDA graph) and one call's event time with its
+     enqueue, the plain version's, the bound from the case's inputs (H100
+     peaks) with its share, the one PyTorch call that computes the same
+     function where there is one (`library_ms`, timed like the kernel), and
+     the sort inside the build's and K2's times (`parts_ms`).
   3. the main path, the bench workload: simulated 32-beam scans ->
      featurize -> register_scan_pair on 16 stride-2 pairs from a zero guess.
      The bench gate (median < 0.75 deg and < 0.030 m) must hold, and both
@@ -30,8 +36,9 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      Then one traced loop_closure_step, prior cycle and backend_step, and
      the loop ICP's Kabsch step beside its 1-NN search.
 Then one JSON line lists each kernel: its launches in phase 3's main-path
-run (and in phase 5's, "launches_mapping"), and from phase 2 its worst
-max_abs_err and its ms / plain_ms summed over its cases (one call of each;
+run (and in phase 5's, "launches_mapping", and per lap scan), and from
+phase 2 its worst max_abs_err and its ms / plain_ms / bound_ms summed over
+its cases (one call of each; library_ms only where every case has one;
 every case is also under "cases"; the B=1 cases are the shapes of phases 4
 and 5).
 The line before the last is the card's `nvidia-smi` name and power limit;
@@ -59,7 +66,7 @@ from rolo_tpu_torch.loop.scancontext import detect_loop
 from rolo_tpu_torch.mapping.backend import (backend_step, init_backend, loop_closure_step,
                                             solve_graph_host)
 from rolo_tpu_torch.ops import cuda_build
-from rolo_tpu_torch.ops.knn_moments import knn_moments, knn_moments_torch
+from rolo_tpu_torch.ops.knn_moments import knn_moments, knn_moments_torch, morton_order
 from rolo_tpu_torch.ops.voxel_join import (INVALID_PACK, keyed_matmul, keyed_matmul_torch,
                                            pack_polar, pack_uniform)
 from rolo_tpu_torch.pointcloud.cloud import PaddedCloud, concat_clouds
@@ -80,6 +87,10 @@ MIN_FACTORS = 50  # scan2map's min_factors (rolo_tpu/mapping/scan2map.py:273)
 # max |kernel - plain| per output plane, relative to max(1, max |plain|) of
 # that plane: both sum the same f32 terms in different orders.
 REL_TOL = 1e-5
+# NVIDIA's published H100 SXM peaks (at its 700 W limit): f32 outside the
+# tensor cores, and HBM3 bandwidth; phase 2 states each kernel's bound with them
+H100_F32_FLOPS = 67e12
+H100_BYTES_PER_S = 3.35e12
 KERNELS = {
     "keyed_sum": {"route": "cuda", "source": "rolo_tpu_torch/csrc/keyed_sum.cu",
                   "replaces": "rolo_tpu/ops/voxel_join.py:151"},
@@ -89,7 +100,8 @@ KERNELS = {
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Warm median milliseconds of fn() on the current stream."""
+    """Warm median milliseconds of one fn() call between two CUDA events:
+    the device time plus whatever of the host's enqueue it waits for."""
     fn()
     times = []
     for _ in range(reps):
@@ -102,14 +114,55 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """Warm median device milliseconds per fn() call: `calls` calls captured
+    in one CUDA graph and replayed between two events, so the host's Python
+    and launch overhead is not in the time."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def plane_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     scale = torch.clamp(want.abs().amax(dim=-1, keepdim=True), min=1.0)
     return float(((got - want).abs() / scale).max())
 
 
+def bound_ms(flops: float, nbytes: float):
+    """(least ms the card could take, "operations" or "bytes"): the larger
+    of the f32 work at H100_F32_FLOPS and the bytes moved (each input read
+    once, each output written once) at H100_BYTES_PER_S."""
+    t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def kernel_cases(cfg: RoloConfig, src, src_mask, tgt, tgt_mask):
-    """(kernel, case, kernel_fn, plain_fn) at the main path's shapes, built
-    from the workload's own feature clouds."""
+    """Each kernel case at the main path's shapes, built from the workload's
+    own feature clouds: name, case, kernel and plain callables, the bound
+    from this case's inputs, and the one PyTorch call that computes the same
+    function (or why there is none)."""
     reg = cfg.registration
     polar = tuple(reg.polar_resolution)
     tgt_cov = estimate_cov6(tgt, tgt_mask, k=reg.k_correspondences)
@@ -119,6 +172,19 @@ def kernel_cases(cfg: RoloConfig, src, src_mask, tgt, tgt_mask):
     pack = torch.where(tgt_mask, pack_polar(polar_coord(tgt, polar)), INVALID_PACK)
     pack = pack.to(torch.int32).contiguous()
     table = torch.sort(pack, dim=-1).values.contiguous()
+
+    def build():  # build_voxel_map's K1 part: one sort, one gather, run sums
+        sp, order = torch.sort(pack, dim=-1)
+        return keyed_matmul(torch.gather(data, 2, order[:, None].expand_as(data)), sp, sp,
+                            keys_sorted=True)
+
+    # the library yardstick of the build: index_add_ of the value columns
+    # into their table slots, the slot of each point computed beforehand
+    b, s, n = data.shape
+    slot = torch.searchsorted(table, pack)
+    flat = torch.where(tgt_mask, slot + n * torch.arange(b, device=pack.device)[:, None], b * n)
+    flat, rows = flat.reshape(-1), data.transpose(1, 2).reshape(-1, s).contiguous()
+
     vmap = build_voxel_map(tgt, tgt_cov, tgt_mask, cfg.static.max_voxels, polar_res=polar)
     q1 = torch.where(src_mask, pack_polar(polar_coord(src, polar)), INVALID_PACK)
     q1 = q1.to(torch.int32).contiguous()
@@ -132,42 +198,85 @@ def kernel_cases(cfg: RoloConfig, src, src_mask, tgt, tgt_mask):
     xyz = torch.where(tgt_mask[..., None], tgt, 0.0).contiguous()
     xc = moment_table(xyz, tgt_mask).contiguous()
     k = reg.k_correspondences
+    no_join = "none: a join is a searchsorted and a gather, no one PyTorch call"
+
+    def join(vm, q):  # the table's stats and keys, the queries, the [B, S, M] output
+        return bound_ms(0.0, _nbytes(vm.stats, vm.pack, q) + 4 * vm.stats.shape[1] * q.numel())
+
+    n_valid = tgt_mask.sum(dim=1).double()
+    pairs = float((n_valid * n_valid).sum())  # valid queries x valid candidates
     return [
-        ("keyed_sum", f"build [10,{pack.shape[1]}]->{table.shape[1]}",
-         lambda: keyed_matmul(data, pack, table), lambda: keyed_matmul_torch(data, pack, table)),
-        ("keyed_sum", f"join polar M={q1.shape[1]}",
-         lambda: keyed_matmul(vmap.stats, vmap.pack, q1, keys_sorted=True),
-         lambda: keyed_matmul_torch(vmap.stats, vmap.pack, q1)),
-        ("keyed_sum", f"join fine direct7 M={q7.shape[1]}",
-         lambda: keyed_matmul(fine.stats, fine.pack, q7, keys_sorted=True),
-         lambda: keyed_matmul_torch(fine.stats, fine.pack, q7)),
-        ("knn_moments", f"Q=N={xyz.shape[1]} k={k}",
-         lambda: knn_moments(xyz, tgt_mask, xyz, tgt_mask, xc, k),
-         lambda: knn_moments_torch(xyz, tgt_mask, xyz, tgt_mask, xc, k)),
+        {"name": "keyed_sum", "case": f"build [10,{n}]->{n} (sort included)",
+         "kernel": build, "plain": lambda: keyed_matmul_torch(data, pack, table),
+         "bound": bound_ms(0.0, _nbytes(data, pack, table) + _nbytes(data)),
+         "library": lambda: torch.zeros(b * n + 1, s, device=data.device).index_add_(0, flat,
+                                                                                      rows),
+         "library_note": "zeros + index_add_ of the value columns into their slots "
+                         "(the slot computation excluded)",
+         "parts": {"torch.sort": lambda: torch.sort(pack, dim=-1)}},
+        {"name": "keyed_sum", "case": f"join polar M={q1.shape[1]}",
+         "kernel": lambda: keyed_matmul(vmap.stats, vmap.pack, q1, keys_sorted=True,
+                                        run_heads=True),
+         "plain": lambda: keyed_matmul_torch(vmap.stats, vmap.pack, q1),
+         "bound": join(vmap, q1), "library": None, "library_note": no_join},
+        {"name": "keyed_sum", "case": f"join fine direct7 M={q7.shape[1]}",
+         "kernel": lambda: keyed_matmul(fine.stats, fine.pack, q7, keys_sorted=True,
+                                        run_heads=True),
+         "plain": lambda: keyed_matmul_torch(fine.stats, fine.pack, q7),
+         "bound": join(fine, q7), "library": None, "library_note": no_join},
+        {"name": "knn_moments", "case": f"Q=N={xyz.shape[1]} k={k}",
+         "kernel": lambda: knn_moments(xyz, tgt_mask, xyz, tgt_mask, xc, k),
+         "plain": lambda: knn_moments_torch(xyz, tgt_mask, xyz, tgt_mask, xc, k),
+         "bound": bound_ms(8.0 * pairs, _nbytes(xyz, tgt_mask, xyz, tgt_mask, xc)
+                           + 4 * xc.shape[0] * xc.shape[1] * xyz.shape[1]),
+         "library": None,
+         "library_note": "none: no PyTorch call selects k neighbours and sums their moments",
+         "parts": {"Morton order": lambda: morton_order(xyz, tgt_mask)}},
     ]
 
 
-def check_kernels(cases, reps: int = 5, timer=cuda_ms) -> dict:
-    """Phase 2: kernel vs plain on identical inputs; per-kernel summary."""
+def check_kernels(cases, reps: int = 5) -> dict:
+    """Phase 2: kernel vs plain on identical inputs, the kernel run twice
+    (identical bits: no atomics), times against the bound; per-kernel
+    summary."""
     summary = {}
-    for name, case, kern, plain in cases:
-        got, want = kern(), plain()
+    for c in cases:
+        name, case = c["name"], c["case"]
+        got, want = c["kernel"](), c["plain"]()
         err = plane_rel_err(got, want)
         max_abs = float((got - want).abs().max())
-        ms, plain_ms = timer(kern, reps), timer(plain, max(1, reps // 2))
+        again = c["kernel"]()
+        ms, call_ms = graph_ms(c["kernel"]), cuda_ms(c["kernel"], reps)
+        plain_ms = cuda_ms(c["plain"], max(1, reps // 2))
+        lib_ms = graph_ms(c["library"]) if c["library"] is not None else None
+        parts = {part: graph_ms(fn) for part, fn in c.get("parts", {}).items()}
+        bound, bound_by = c["bound"]
         print(f"kernel {name} [{case}]: max_abs_err {max_abs:.3e}, rel err {err:.3e} "
-              f"(tol {REL_TOL:g}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+              f"(tol {REL_TOL:g}), kernel {ms:.4f} ms device ({call_ms:.4f} ms one call "
+              f"with its enqueue), plain {plain_ms:.3f} ms, bound {bound:.4f} ms by {bound_by} "
+              f"({100 * bound / ms:.1f}% of bound), library "
+              + (f"{lib_ms:.4f} ms ({c['library_note']})" if lib_ms is not None
+                 else f"null ({c['library_note']})")
+              + "".join(f"; of the kernel's time, {part} {t:.4f} ms" for part, t in parts.items()))
         if not err <= REL_TOL:
             raise AssertionError(f"{name} [{case}] disagrees with its plain version: {err:.3e}")
         if name == "knn_moments" and not torch.equal(got[:, 0], want[:, 0]):
             raise AssertionError("knn_moments membership counts differ from the plain version")
-        s = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                      "cases": []})
-        s["max_abs_err"] = max(s["max_abs_err"], max_abs)
-        s["ms"] += ms
-        s["plain_ms"] += plain_ms
-        s["cases"].append({"case": case, "max_abs_err": max_abs, "rel_err": err, "ms": ms,
-                           "plain_ms": plain_ms})
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} [{case}] gave other bits on a second call")
+        sm = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                       "bound_ms": 0.0, "library_ms": 0.0, "cases": []})
+        sm["max_abs_err"] = max(sm["max_abs_err"], max_abs)
+        sm["ms"] += ms
+        sm["plain_ms"] += plain_ms
+        sm["bound_ms"] += bound
+        sm["library_ms"] = None if lib_ms is None or sm["library_ms"] is None else \
+            sm["library_ms"] + lib_ms
+        sm["bound_by"] = bound_by if sm.get("bound_by", bound_by) == bound_by else "mixed"
+        sm["cases"].append({"case": case, "max_abs_err": max_abs, "rel_err": err, "ms": ms,
+                            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                            "bound_by": bound_by, "library_ms": lib_ms,
+                            "library": c["library_note"], "parts_ms": parts})
     return summary
 
 
@@ -495,7 +604,7 @@ def main() -> int:
     for name, (path, seconds) in built.items():
         print(f"build {name}: {seconds:.1f} s -> {path.name}")
         for line in cuda_build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {line.strip()}")
 
     cfg = RoloConfig()
@@ -508,8 +617,8 @@ def main() -> int:
           f"valid features per scan {[int(c.mask.sum()) for c in clouds[:BATCH + STRIDE]]}")
 
     cases = kernel_cases(cfg, *pairs[:4])
-    cases += [(name, f"B=1 {case}", kern, plain)
-              for name, case, kern, plain in kernel_cases(cfg, *(t[:1] for t in pairs[:4]))]
+    cases += [{**c, "case": f"B=1 {c['case']}"}
+              for c in kernel_cases(cfg, *(t[:1] for t in pairs[:4]))]
     summary = check_kernels(cases)
     launches, rot_med, trans_med, rate = main_path(cfg, *pairs)
     print(f"registrations/s: {rate:.2f} at B={BATCH} on {smi} "
@@ -524,7 +633,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
-         "launches_mapping": map_launches[name], **summary[name]}
+         "launches_mapping": map_launches[name],
+         "launches_per_lap_scan": map_launches[name] / N_MAP, **summary[name]}
         for name in KERNELS]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(smi)

@@ -21,6 +21,7 @@ import torch
 
 from ..config import FilterConfig
 from ..geometry import so3
+from ..runtime.platform import default_device
 
 _DOF = 18
 
@@ -51,6 +52,7 @@ def _initial_cov(cfg: FilterConfig, dtype, device) -> torch.Tensor:
 
 def init_filter(cfg: FilterConfig = FilterConfig(), device=None,
                 dtype=torch.float32) -> ESKFState:
+    device = default_device() if device is None else device
     zero = torch.zeros(3, dtype=dtype, device=device)
     return ESKFState(pos=zero, rot=torch.eye(3, dtype=dtype, device=device), vel=zero,
                      omega=zero, acc=zero, alpha=zero, cov=_initial_cov(cfg, dtype, device),

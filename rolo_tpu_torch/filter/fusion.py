@@ -19,6 +19,7 @@ from ..geometry import so3
 from ..geometry.se3 import SE3
 from ..ops.pytree import tree_from_numpy, tree_to_numpy
 from ..ops.rows import read_row
+from ..runtime.platform import default_device
 from . import eskf
 
 
@@ -33,6 +34,7 @@ class FusionState(NamedTuple):
 
 def init_fusion(cfg: FilterConfig = FilterConfig(), device=None,
                 dtype=torch.float32) -> FusionState:
+    device = default_device() if device is None else device
     eye = torch.eye(3, dtype=dtype, device=device)
     zero = torch.zeros(3, dtype=dtype, device=device)
     return FusionState(filter=eskf.init_filter(cfg, device, dtype), front_rot=eye,

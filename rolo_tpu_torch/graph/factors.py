@@ -12,6 +12,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.rows import write_row_
+from ..runtime.platform import default_device
 
 # factors.py:20-28: the reference's first-pose prior variances, the anchored
 # variant the batch re-solve uses (a pure gauge choice), and the odometry noise
@@ -38,6 +39,7 @@ class BetweenFactors(NamedTuple):
 
 
 def empty_between(capacity: int, device=None, dtype=torch.float32) -> BetweenFactors:
+    device = default_device() if device is None else device
     return BetweenFactors(
         i=torch.zeros(capacity, dtype=torch.int32, device=device),
         j=torch.zeros(capacity, dtype=torch.int32, device=device),
@@ -81,6 +83,7 @@ class PoseGraph(NamedTuple):
 
 def empty_graph(max_keyframes: int, max_loops: int, max_priors: int, device=None,
                 dtype=torch.float32) -> PoseGraph:
+    device = default_device() if device is None else device
     return PoseGraph(
         odom_rel_rot=torch.eye(3, dtype=dtype, device=device).repeat(max_keyframes, 1, 1),
         odom_rel_trans=torch.zeros(max_keyframes, 3, dtype=dtype, device=device),

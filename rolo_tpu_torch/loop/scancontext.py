@@ -14,6 +14,7 @@ import torch
 
 from ..config import LoopConfig
 from ..ops.rows import read_row, write_row_
+from ..runtime.platform import default_device
 
 
 def make_descriptor(xyz: torch.Tensor, mask: torch.Tensor, num_ring: int = 20,
@@ -62,6 +63,7 @@ class ScanContextDB(NamedTuple):
 
 def init_db(capacity: int, num_ring: int = 20, num_sector: int = 60, device=None,
             dtype=torch.float32) -> ScanContextDB:
+    device = default_device() if device is None else device
     return ScanContextDB(
         desc=torch.zeros(capacity, num_ring, num_sector, dtype=dtype, device=device),
         rkey=torch.zeros(capacity, num_ring, dtype=dtype, device=device),

@@ -36,6 +36,7 @@ from ..pointcloud.cloud import PaddedCloud
 from ..pointcloud.features import voxel_downsample
 from ..prior import association as priormod
 from ..prior.association import PriorQueue, init_queue
+from ..runtime.platform import default_device
 from .keyframes import (KeyframeDB, add_keyframe, extract_submap, init_db, latest_pose,
                         should_add_keyframe)
 from .scan2map import constrain_transform, scan2map_optimize
@@ -72,6 +73,7 @@ class BackendOutput(NamedTuple):
 
 
 def init_backend(cfg: RoloConfig, device=None, dtype=torch.float32) -> BackendState:
+    device = default_device() if device is None else device
     st = cfg.static
     return BackendState(
         db=init_db(st.max_keyframes, st.max_corner_points, st.max_surf_points, device, dtype),

@@ -14,6 +14,7 @@ from ..geometry.se3 import SE3
 from ..ops.rows import read_row, write_row_
 from ..pointcloud.cloud import PaddedCloud
 from ..pointcloud.features import voxel_downsample
+from ..runtime.platform import default_device
 
 
 class KeyframeDB(NamedTuple):
@@ -36,6 +37,7 @@ class KeyframeDB(NamedTuple):
 
 def init_db(max_keyframes: int, corner_cap: int, surf_cap: int, device=None,
             dtype=torch.float32) -> KeyframeDB:
+    device = default_device() if device is None else device
     k = max_keyframes
     return KeyframeDB(
         rot=torch.eye(3, dtype=dtype, device=device).repeat(k, 1, 1),

@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 BUILD_LOG: Dict[str, str] = {}  # name -> nvcc's output (-Xptxas -v: registers, spills)
 
 
@@ -76,6 +77,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LOADED[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point `symbol` of csrc/<name>.cu with its argument types
+    set, returning an int (a cudaError_t); prepared once per process."""
+    fn = _FUNCTIONS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[(name, symbol)] = fn
+    return fn
 
 
 def check_launch(rc: int, name: str) -> None:

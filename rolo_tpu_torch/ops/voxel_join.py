@@ -6,10 +6,11 @@ voxel build and every correspondence rebind:
     out[b, s, m] = sum_k values[b, s, k] * (keys_k[b, k] == keys_m[b, m])
 
 On the TPU this is a one-hot matmul on the MXU (scatters and gathers
-serialize there). On Hopper the CUDA kernel `csrc/keyed_sum.cu` computes it
-directly: binary search of each query key in the sorted keys, then an f32
-sum over the matching run. `keyed_matmul_torch` is the plain version: a
-chunked equality matmul, the counterpart of `_keyed_matmul_jnp`.
+serialize there). On Hopper the CUDA kernels of `csrc/keyed_sum.cu` compute
+it directly: a join binary-searches each query key in its instance's sorted
+keys, staged in shared memory, then sums the matching run in f32; a build
+over sorted packs sums each run once. `keyed_matmul_torch` is the plain
+version: a chunked equality matmul, the counterpart of `_keyed_matmul_jnp`.
 
 Contract shared with the reference: values at INVALID_PACK keys are zero
 (padding, masked points, empty table slots), so a sentinel query sums to 0.
@@ -29,6 +30,7 @@ from . import cuda_build
 #   uniform: (x+512)[10b] << 20 | (y+512)[10b] << 10 | (z+512)[10b]
 INVALID_PACK = 0x7FFFFFFF
 MAX_PLANES = 16
+MAX_SHARED_KEYS = 232448 // 4  # int32 table keys in the 227 KB a block may hold
 _CHUNK = 1024  # query columns per one-hot tile in the plain version
 
 
@@ -88,36 +90,70 @@ def _check(values, keys_k, keys_m):
         raise ValueError(f"keyed_matmul supports at most {MAX_PLANES} value planes, got {s}")
 
 
+def check_join_keys(k: int) -> None:
+    """A join stages one instance's K sorted keys in shared memory: at most
+    MAX_SHARED_KEYS (227 KB of int32). Larger tables raise."""
+    if k > MAX_SHARED_KEYS:
+        raise ValueError(f"keyed_matmul: a join takes at most {MAX_SHARED_KEYS} table keys per "
+                         f"instance (227 KB of shared memory), got {k}")
+
+
+def _rows_layout(values: torch.Tensor) -> bool:
+    """True for a row-major table seen as [B, S, K]: the S values of a
+    column contiguous in 16-byte aligned rows of a multiple of 4 floats."""
+    _, s, _ = values.shape
+    sb, ss, sk = values.stride()
+    return (ss == 1 and sk % 4 == 0 and sk >= (s + 3) // 4 * 4 and sb % 4 == 0
+            and values.data_ptr() % 16 == 0)
+
+
 def keyed_matmul(values: torch.Tensor, keys_k: torch.Tensor, keys_m: torch.Tensor,
-                 keys_sorted: bool = False) -> torch.Tensor:
+                 keys_sorted: bool = False, run_heads: bool = False) -> torch.Tensor:
     """out[b, s, m] = sum over k of values[b, s, k] where keys_k[b, k] ==
-    keys_m[b, m]; values [B, S, K] f32, keys int32, S <= 16.
+    keys_m[b, m]; values [B, S, K] f32 (any strides), keys int32, S <= 16.
 
     keys_sorted=True promises each row of keys_k ascending (a voxel table);
     otherwise the keys and value columns are first put in order with a
-    stable sort (a voxel build). CPU tensors take the plain version; CUDA
-    tensors launch the kernel, counted in `keyed_matmul.launches`."""
+    stable sort. With sorted keys and keys_m the very same tensor as keys_k
+    (a voxel build over its own sorted packs), each run is summed once and
+    written to all its slots. run_heads=True (with keys_sorted) promises
+    that only the first slot of each run of equal keys_k holds non-zero
+    values, as in a voxel table; a join then reads that slot alone. CPU
+    tensors take the plain version; CUDA tensors launch a kernel, counted
+    in `keyed_matmul.launches`."""
     _check(values, keys_k, keys_m)
     if values.device.type == "cpu":
         return keyed_matmul_torch(values, keys_k, keys_m)
     if values.device.type != "cuda":
         raise ValueError(f"keyed_matmul: unsupported device {values.device}")
-    if not (values.is_contiguous() and keys_k.is_contiguous() and keys_m.is_contiguous()):
-        raise ValueError("keyed_matmul wants contiguous operands")
+    if not (keys_k.is_contiguous() and keys_m.is_contiguous()):
+        raise ValueError("keyed_matmul wants contiguous keys")
     b, s, k = values.shape
     m = keys_m.shape[1]
     out = torch.empty((b, s, m), dtype=torch.float32, device=values.device)
     if b == 0 or m == 0:
         return out
+    runs = keys_sorted and keys_m.data_ptr() == keys_k.data_ptr() and keys_m.shape == keys_k.shape
+    if not runs:
+        check_join_keys(k)
     if not keys_sorted:
         keys_k, order = torch.sort(keys_k, dim=-1, stable=True)
         values = torch.gather(values, 2, order[:, None, :].expand(b, s, k))
-    lib = cuda_build.load("keyed_sum")
-    fn = lib.rolo_keyed_sum
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(values.data_ptr(), keys_k.data_ptr(), keys_m.data_ptr(), out.data_ptr(),
-            b, s, k, m, torch.cuda.current_stream(values.device).cuda_stream)
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    strides = values.stride()
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    if runs:
+        partial = torch.empty_like(out)
+        fn = cuda_build.function("keyed_sum", "rolo_keyed_sum_runs",
+                                 [p] + [ll] * 3 + [p] * 3 + [i] * 3 + [p])
+        rc = fn(values.data_ptr(), *strides, keys_k.data_ptr(), partial.data_ptr(),
+                out.data_ptr(), b, s, k, stream)
+    else:
+        fn = cuda_build.function("keyed_sum", "rolo_keyed_sum",
+                                 [p] + [ll] * 3 + [i] * 2 + [p] * 3 + [i] * 4 + [p])
+        rc = fn(values.data_ptr(), *strides, int(_rows_layout(values)),
+                int(keys_sorted and run_heads), keys_k.data_ptr(), keys_m.data_ptr(),
+                out.data_ptr(), b, s, k, m, stream)
     cuda_build.check_launch(rc, "keyed_sum")
     keyed_matmul.launches += 1
     return out

@@ -8,6 +8,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..runtime.platform import default_device
+
 
 class PaddedCloud(NamedTuple):
     """xyz [..., N, 3] float32, mask [..., N] bool (True = real point)."""
@@ -24,7 +26,9 @@ class PaddedCloud(NamedTuple):
 
     @staticmethod
     def from_points(points, capacity: int, device=None) -> "PaddedCloud":
-        """From a dense [M, 3] host array, truncated to `capacity`."""
+        """From a dense [M, 3] host array, truncated to `capacity`, on
+        `device` (the card when None)."""
+        device = default_device() if device is None else device
         points = np.asarray(points, dtype=np.float32).reshape(-1, 3)
         m = min(points.shape[0], capacity)
         xyz = np.zeros((capacity, 3), dtype=np.float32)

@@ -19,6 +19,7 @@ from ..geometry.se3 import SE3
 from ..loop.closure import icp_point2point
 from ..ops.rows import write_row_
 from ..pointcloud.cloud import PaddedCloud
+from ..runtime.platform import default_device
 from .ground import GroundMap, extract_patch
 from .vehicle import VehicleModel, solve_pose
 
@@ -68,6 +69,7 @@ class PriorQueue(NamedTuple):
 
 def init_queue(capacity: int, patch_capacity: int, device=None,
                dtype=torch.float32) -> PriorQueue:
+    device = default_device() if device is None else device
     return PriorQueue(
         rel_rot=torch.eye(3, dtype=dtype, device=device).repeat(capacity, 1, 1),
         rel_trans=torch.zeros(capacity, 3, dtype=dtype, device=device),

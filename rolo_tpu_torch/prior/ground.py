@@ -15,6 +15,7 @@ from ..ops.eig3 import eigh3
 from ..ops.pytree import tree_from_numpy, tree_to_numpy
 from ..pointcloud.cloud import PaddedCloud
 from ..pointcloud.features import voxel_downsample
+from ..runtime.platform import default_device
 
 # FitLocalSurface call-site constants (ground.py:22-26)
 FIT_RADIUS = 0.6
@@ -136,6 +137,7 @@ class LiveGroundMap(NamedTuple):
 
 def init_live_ground(n_slots: int, slot_capacity: int, device=None,
                      dtype=torch.float32) -> LiveGroundMap:
+    device = default_device() if device is None else device
     return LiveGroundMap(
         xyz=torch.zeros(n_slots * slot_capacity, 3, dtype=dtype, device=device),
         mask=torch.zeros(n_slots * slot_capacity, dtype=torch.bool, device=device),

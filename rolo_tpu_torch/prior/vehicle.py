@@ -18,6 +18,7 @@ import torch
 
 from ..config import PriorConfig
 from ..geometry import so3
+from ..runtime.platform import default_device
 from .ground import GroundMap, average_height_at, contact_point, nearest_point_xy
 
 
@@ -33,6 +34,7 @@ class VehicleModel(NamedTuple):
 def from_config(cfg: PriorConfig, device=None, dtype=torch.float32) -> VehicleModel:
     """The explicit `wheel_xy` list, or four wheels on a square of side
     `vehicle_size_xy` (vehicle.py:40-58)."""
+    device = default_device() if device is None else device
     if cfg.wheel_xy:
         xy = torch.tensor(cfg.wheel_xy, dtype=dtype, device=device)
     else:

@@ -15,6 +15,13 @@ import subprocess
 import torch
 
 
+def default_device() -> torch.device:
+    """Where the port's state constructors allocate when no device is given:
+    the card. Availability is not checked: without a card torch raises at
+    the first allocation, rather than state being built on the CPU."""
+    return torch.device("cuda")
+
+
 def configure_precision() -> None:
     """Full-f32 matmuls and convolutions (TF32 keeps ~3 decimal digits)."""
     torch.backends.cuda.matmul.allow_tf32 = False

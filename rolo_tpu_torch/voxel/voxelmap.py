@@ -1,10 +1,10 @@
 """Voxel maps over fixed-slot tensors, torch port of
 `rolo_tpu/voxel/voxelmap.py`.
 
-A voxel map is a sorted table of packed bins with SoA stat planes
-[B, 10, V] (num, mean xyz, cov6). The build sorts the packs, marks run
-starts, and sums each run with kernel K1 (`keyed_matmul`); a lookup joins
-query packs against the sorted table with the same kernel.
+A voxel map is a sorted table of packed bins with stat planes [B, 10, V]
+(num, mean xyz, cov6), stored row-major. The build sorts the packs once,
+marks run starts, and sums each run with kernel K1 (`keyed_matmul`); a
+lookup joins query packs against the sorted table with the same kernel.
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ class VoxelMap(NamedTuple):
 
     pack [B, V] int32 ascending (INVALID_PACK for empty slots; duplicate
     slots repeat their run start's pack with valid=False and zero stats);
-    stats [B, 10, V]; num_points [B, V]; mean [B, 3, V]; cov6 [B, 6, V];
+    stats [B, 10, V], a view of a row-major [B, V, 12] table; num_points [B, V]; mean [B, 3, V]; cov6 [B, 6, V];
     kappa [B, V]; valid [B, V] bool."""
 
     pack: torch.Tensor
@@ -113,7 +113,7 @@ def build_voxel_map(xyz: torch.Tensor, cov6: torch.Tensor, mask: torch.Tensor, c
         pack = pack_uniform(uniform_coord(xyz, resolution))
     pack = torch.where(mask, pack, INVALID_PACK).to(torch.int32)
 
-    sp = torch.sort(pack, dim=-1).values
+    sp, order = torch.sort(pack, dim=-1)  # the build's one sort
     is_valid = sp != INVALID_PACK
     first = torch.ones_like(sp[:, :1], dtype=torch.bool)
     new_seg = is_valid & torch.cat([first, sp[:, 1:] != sp[:, :-1]], dim=1)
@@ -131,7 +131,11 @@ def build_voxel_map(xyz: torch.Tensor, cov6: torch.Tensor, mask: torch.Tensor, c
 
     w = mask.to(xyz.dtype)
     data = torch.cat([w[:, None, :], xyz.transpose(1, 2) * w[:, None, :], cov6 * w[:, None, :]], 1)
-    sums = keyed_matmul(data.contiguous(), pack.contiguous(), table_pack.contiguous())
+    data = torch.gather(data, 2, order[:, None, :].expand(-1, data.shape[1], -1))
+    # capacity >= n: the table is the sorted packs themselves, and keyed_matmul
+    # sums each run once; otherwise the compacted table joins the sorted packs
+    sums = keyed_matmul(data, sp, sp if capacity >= n else table_pack.contiguous(),
+                        keys_sorted=True)
 
     num = sums[:, 0]
     denom = torch.clamp(num, min=1.0)
@@ -141,9 +145,12 @@ def build_voxel_map(xyz: torch.Tensor, cov6: torch.Tensor, mask: torch.Tensor, c
     kappa = torch.where(valid, _kappa_from_rbar(r_bar), 0.0)
     vmask = valid[:, None, :]
     stats = torch.where(vmask, torch.cat([num[:, None], mean, cov], dim=1), 0.0)
+    # row-major [B, V, 12] (16-byte rows): a join reads a hit's 10 stats in
+    # three float4 loads; `stats` is its [B, 10, V] view
+    rows = torch.nn.functional.pad(stats.transpose(1, 2), (0, 2))
     return VoxelMap(
         pack=table_pack.contiguous(),
-        stats=stats.contiguous(),
+        stats=rows[..., :10].transpose(1, 2),
         num_points=torch.where(valid, num, 0.0),
         mean=torch.where(vmask, mean, 0.0),
         cov6=torch.where(vmask, cov, 0.0),
@@ -173,6 +180,7 @@ def lookup_join(vmap: VoxelMap, pack: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Keyed-sum lookup, the production binding path: pack [B, M] ->
     (found [B, M], num [B, M], mean [B, 3, M], cov6 [B, 6, M])."""
-    out = keyed_matmul(vmap.stats, vmap.pack, pack.contiguous(), keys_sorted=True)
+    out = keyed_matmul(vmap.stats, vmap.pack, pack.contiguous(), keys_sorted=True,
+                       run_heads=True)
     num = out[:, 0]
     return num > 0.0, num, out[:, 1:4], out[:, 4:10]

@@ -217,7 +217,7 @@ def test_scan_context_descriptor_matches_reference(parts):
                              lc.sc_max_radius, lc.sc_lidar_height)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want != 0).mean() > 0.2
-    db = sc.init_db(2, lc.sc_num_ring, lc.sc_num_sector)
+    db = sc.init_db(2, lc.sc_num_ring, lc.sc_num_sector, "cpu")
     for enable in (True, False, True, True):  # the last add finds the store full
         db = sc.add_descriptor(db, got, enable)
     jdb = jsc.init_db(2, lc.sc_num_ring, lc.sc_num_sector)

@@ -14,12 +14,13 @@ import pytest
 import torch
 
 from chip_smoke import REL_TOL, plane_rel_err
-from torch_parity import lidar_cloud
+from torch_parity import KNN_CASES, knn_batch, lidar_cloud
 
 from rolo_tpu_torch.config import RegistrationConfig
 from rolo_tpu_torch.ops import cuda_build
 from rolo_tpu_torch.ops.knn_moments import knn_moments, knn_moments_torch
-from rolo_tpu_torch.ops.voxel_join import INVALID_PACK, keyed_matmul, keyed_matmul_torch
+from rolo_tpu_torch.ops.voxel_join import (INVALID_PACK, MAX_SHARED_KEYS, keyed_matmul,
+                                           keyed_matmul_torch)
 from rolo_tpu_torch.registration.rotgicp import register_scan_pair
 from rolo_tpu_torch.runtime.platform import configure_precision
 from rolo_tpu_torch.voxel.knn import moment_table
@@ -43,7 +44,8 @@ def test_kernel_builds(cuda, name):
 
 
 @pytest.mark.parametrize("b,s,k,m,sorted_keys", [
-    (1, 3, 7, 5, True), (3, 10, 1000, 333, False), (16, 10, 8192, 57344, True)])
+    (1, 3, 7, 5, True), (3, 10, 1000, 333, False), (16, 10, 8192, 57344, True),
+    (2, 10, MAX_SHARED_KEYS - 112, 4096, True)])
 def test_keyed_sum_matches_plain(cuda, b, s, k, m, sorted_keys):
     g = torch.Generator(device="cpu").manual_seed(0)
     keys_k = torch.randint(0, 300, (b, k), generator=g, dtype=torch.int32)
@@ -67,7 +69,8 @@ def _lidar(rng, b, n):
     return torch.as_tensor(np.stack([lidar_cloud(rng, n) for _ in range(b)]))
 
 
-@pytest.mark.parametrize("b,q,n,k", [(2, 300, 300, 8), (16, 8192, 8192, 20)])
+@pytest.mark.parametrize("b,q,n,k", [(2, 300, 300, 8), (16, 8192, 8192, 20),
+                                     (1, 8192, 8192, 20)])
 def test_knn_moments_matches_plain(cuda, b, q, n, k):
     rng = np.random.default_rng(1)
     cand = _lidar(rng, b, n)
@@ -78,9 +81,52 @@ def test_knn_moments_matches_plain(cuda, b, q, n, k):
     dev = [t.to(cuda) for t in (xyz, mask, cand, cmask, xc)]
     want = knn_moments_torch(*dev, k)
     got = knn_moments(*dev, k)
+    again = knn_moments(*dev, k)
     torch.cuda.synchronize()
     assert torch.equal(got[:, 0], want[:, 0])  # membership agrees bit for bit
     assert plane_rel_err(got, want) < REL_TOL
+    assert torch.equal(got, again)  # no atomics: the same bits on every call
+
+
+@pytest.mark.parametrize("k", [1, 20, 32])
+@pytest.mark.parametrize("case,n", KNN_CASES)
+def test_knn_moments_cases_match_plain(cuda, case, n, k):
+    """tests/test_torch_kernels.py's cases on the card: ties, starved and
+    all-masked instances, N < k, N off the 64-candidate tile."""
+    xyz, mask, cand, cmask = knn_batch(case, n, k)
+    xc = moment_table(cand, cmask).contiguous()
+    dev = [t.to(cuda) for t in (xyz, mask, cand, cmask, xc)]
+    want = knn_moments_torch(*dev, k)
+    got = knn_moments(*dev, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 0], want[:, 0])
+    assert plane_rel_err(got, want) < REL_TOL
+    assert torch.equal(got, knn_moments(*dev, k))
+
+
+def test_knn_moments_spatial_order_kernels(cuda):
+    """The wrapper's helper kernels: Morton codes as the plain version
+    computes them, and the candidates gathered into sorted float4 tiles."""
+    from rolo_tpu_torch.ops import knn_moments as km
+
+    xyz, mask, cand, cmask = knn_batch("lidar", 300, 20)
+    cand[0, :5] = torch.tensor([-300.0, 300.0, 0.07])  # clamped at the grid's edge
+    codes, order = km.morton_order(cand.to(cuda), cmask.to(cuda))
+    want_codes, want_order = km.morton_order(cand, cmask)
+    assert torch.equal(codes.cpu(), want_codes) and torch.equal(order.cpu(), want_order)
+    xc = moment_table(cand, cmask).contiguous()
+    got = knn_moments(*(t.to(cuda) for t in (cand, cmask, cand, cmask, xc)), 20)
+    want = knn_moments_torch(cand, cmask, cand, cmask, xc, 20)
+    assert torch.equal(got[:, 0].cpu(), want[:, 0])
+
+
+def test_knn_moments_refuses_k_above_queue(cuda):
+    xyz, mask, cand, cmask = knn_batch("lidar", 300, 33)
+    dev = [t.to(cuda) for t in (xyz, mask, cand, cmask, moment_table(cand, cmask))]
+    before = knn_moments.launches
+    with pytest.raises(ValueError):
+        knn_moments(*dev, 33)
+    assert knn_moments.launches == before
 
 
 def test_knn_moments_starved_queries(cuda):
@@ -92,6 +138,96 @@ def test_knn_moments_starved_queries(cuda):
     got = knn_moments(*(t.to(cuda) for t in (cand, cmask, cand, cmask, xc)), 20).cpu()
     assert torch.all(got[0, 0, :8] == 8.0)
     assert torch.all(got[0, :, 8:] == 0.0)
+
+
+@pytest.mark.parametrize("run_heads", [False, True])
+def test_keyed_sum_row_major_table(cuda, run_heads):
+    """A join reading a row-major [B, K, 12] table through its [B, 10, K]
+    view (float4 rows), as lookup_join reads build_voxel_map's stats; with
+    run_heads, only each run's first slot holds values, as in a voxel table,
+    and the join reads that slot alone."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    b, k, m = 4, 8192, 20000
+    keys_k = torch.sort(torch.randint(0, 5000, (b, k), generator=g, dtype=torch.int32)).values
+    keys_m = torch.randint(0, 5200, (b, m), generator=g, dtype=torch.int32)
+    rows = torch.nn.functional.pad(torch.randn(b, k, 10, generator=g), (0, 2))
+    if run_heads:
+        dup = torch.cat([torch.zeros(b, 1, dtype=torch.bool), keys_k[:, 1:] == keys_k[:, :-1]], 1)
+        rows[dup] = 0.0
+    view = rows[..., :10].transpose(1, 2)
+    want = keyed_matmul_torch(view, keys_k, keys_m)
+    got = keyed_matmul(rows.to(cuda)[..., :10].transpose(1, 2), keys_k.to(cuda), keys_m.to(cuda),
+                       keys_sorted=True, run_heads=run_heads)
+    assert plane_rel_err(got.cpu(), want) < REL_TOL
+
+
+def test_keyed_sum_run_sums_match_plain(cuda):
+    """The build's self-join: each run summed once, written to all its
+    slots; sentinel slots 0."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    b, k = 16, 8192
+    keys = torch.randint(0, 1500, (b, k), generator=g, dtype=torch.int32)
+    keys[:, -700:] = INVALID_PACK
+    keys = torch.sort(keys).values
+    values = torch.randn(b, 10, k, generator=g) * 30.0
+    values = torch.where((keys == INVALID_PACK)[:, None], 0.0, values)
+    want = keyed_matmul_torch(values, keys, keys)
+    kd = keys.to(cuda)
+    before = keyed_matmul.launches
+    got = keyed_matmul(values.to(cuda), kd, kd, keys_sorted=True)
+    torch.cuda.synchronize()
+    assert keyed_matmul.launches == before + 1
+    assert plane_rel_err(got.cpu(), want) < REL_TOL
+
+
+def test_keyed_sum_refuses_table_above_shared_memory(cuda):
+    keys = torch.zeros(1, MAX_SHARED_KEYS + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        keyed_matmul(torch.zeros(1, 2, keys.shape[1], device=cuda), keys, keys[:, :8].contiguous(),
+                     keys_sorted=True)
+
+
+@pytest.mark.parametrize("polar,capacity", [(True, 8192), (False, 8192), (False, 1024)])
+def test_build_voxel_map_cuda_sorts_once(cuda, monkeypatch, polar, capacity):
+    """The single-sort build on the card against the same build on CPU
+    tensors, slot for slot, with one torch.sort per build."""
+    from rolo_tpu_torch.voxel.voxelmap import build_voxel_map
+
+    rng = np.random.default_rng(7)
+    b, n = 4, 8192
+    # points in the middle of their bins (0.2-0.8 of a bin from its lower
+    # edge), so atan2 / acos ulps between the devices bin them alike
+    cells = rng.integers(0, 400, (b, n // 4, 3)) + 0.2 + 0.6 * rng.random((b, n // 4, 3))
+    cells = np.take_along_axis(cells, rng.integers(0, n // 4, (b, n, 1)), axis=1)
+    if polar:  # (theta, phi, r) bins of (0.175, 0.175, 2.0), phi within 0.5-2.5 rad
+        theta = (cells[..., 0] % 35) * 0.175 - np.pi
+        phi = 0.525 + (cells[..., 1] % 11) * 0.175
+        r = 2.0 + (cells[..., 2] % 20) * 2.0
+        pts = np.stack([r * np.sin(phi) * np.cos(theta), r * np.sin(phi) * np.sin(theta),
+                        r * np.cos(phi)], -1)
+    else:  # uniform bins floor(a / 0.25 - 0.5)
+        pts = ((cells % 160) - 80 + 0.5) * 0.25
+    pts = torch.as_tensor(pts.astype(np.float32))
+    mask = torch.as_tensor(rng.random((b, n)) < 0.75)
+    pts = torch.where(mask[..., None], pts, 0.0)
+    cov = torch.tensor([1.0, 0, 0, 1.0, 0, 1.0])[None, :, None] * torch.as_tensor(
+        rng.uniform(0.5, 2.0, (b, 1, n)).astype(np.float32))
+    kw = dict(polar_res=(0.175, 0.175, 2.0)) if polar else dict(polar_res=None, resolution=0.25)
+    want = build_voxel_map(pts, cov, mask, capacity, **kw)
+    sorts = []
+    real_sort = torch.sort
+
+    def counting_sort(*args, **kwargs):
+        sorts.append(1)
+        return real_sort(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "sort", counting_sort)
+    got = build_voxel_map(pts.to(cuda), cov.to(cuda), mask.to(cuda), capacity, **kw)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(torch, "sort", real_sort)
+    assert len(sorts) == 1
+    assert torch.equal(got.pack.cpu(), want.pack) and torch.equal(got.valid.cpu(), want.valid)
+    assert plane_rel_err(got.stats.cpu(), want.stats) < REL_TOL
 
 
 def test_registration_cuda_matches_cpu(cuda):
@@ -267,7 +403,7 @@ def test_solve_pose_cuda_matches_cpu(cuda, x, y, yaw):
     cfg = PriorConfig(tolerance_roll=0.5, tolerance_pitch=0.5)
     pts = ground_map_points(SimConfig(period=20.0, roughness=1.2), "cpu")
     mask = torch.ones(len(pts), dtype=torch.bool)
-    want = solve_pose(GroundMap(pts, mask), from_config(cfg), x, y, yaw, cfg)
+    want = solve_pose(GroundMap(pts, mask), from_config(cfg, "cpu"), x, y, yaw, cfg)
     got = solve_pose(GroundMap(pts.to(cuda), mask.to(cuda)), from_config(cfg, cuda), x, y, yaw,
                      cfg)
     assert bool(got.success) == bool(want.success) and bool(got.converged)

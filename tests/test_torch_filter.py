@@ -85,7 +85,7 @@ def _jax_run(n=40):
 
 
 def test_init_filter_matches_reference():
-    _close(eskf.init_filter(_pcfg()), jeskf.init_filter(CFG), 0.0)
+    _close(eskf.init_filter(_pcfg(), "cpu"), jeskf.init_filter(CFG), 0.0)
 
 
 @pytest.mark.parametrize("dt", [0.1, 0.37, 1e-4])
@@ -135,7 +135,7 @@ def _run_scales(states, prefix=""):
 def test_filter_sequence_matches_reference():
     """40 measurements through both filters, compared after every call."""
     scales = _run_scales([s for s, _ in _jax_run()])
-    st = eskf.init_filter(_pcfg())
+    st = eskf.init_filter(_pcfg(), "cpu")
     for (t, pos, rot), (want, wok) in zip(_trajectory(), _jax_run()):
         st, ok = eskf.process_measurement(st, t, T(pos), T(rot), _pcfg())
         assert bool(ok) == wok
@@ -186,7 +186,7 @@ def _jax_fusion_run():
 
 
 def test_fusion_sequence_matches_reference():
-    fs = fusion.init_fusion(_pcfg())
+    fs = fusion.init_fusion(_pcfg(), "cpu")
     _close(fs, jfusion.init_fusion(CFG), 0.0)
     corr_rot = _yaw_rot(0.05)
     scales = _run_scales(_jax_fusion_run())
@@ -217,7 +217,7 @@ def test_fused_pose_and_future_match_reference(index, ahead):
 
 
 def test_fused_pose_invalid_before_mapping():
-    fs = fusion.init_fusion(_pcfg())
+    fs = fusion.init_fusion(_pcfg(), "cpu")
     fs, _ = fusion.on_front_odometry(fs, 0.0, torch.eye(3), torch.zeros(3), _pcfg())
     assert not bool(fusion.fused_pose(fs, 0.1, _pcfg()).valid)
 

@@ -81,7 +81,7 @@ def _jax_graph():
 
 def _port_graph():
     odom_rot, odom_trans, _, _, f = _problem()
-    g = empty_graph(K, 8, 8)
+    g = empty_graph(K, 8, 8, "cpu")
     g.odom_rel_rot.copy_(T(odom_rot))
     g.odom_rel_trans.copy_(T(odom_trans))
     i, j, r, t, var, c = f["loop"]

@@ -1,13 +1,18 @@
 """The port runs where JAX does not exist: importing every module of it, its
-config shim and chip_smoke.py, and running CPU scan_steps, backend_steps, a
+own config and chip_smoke.py, and running CPU scan_steps, backend_steps, a
 loop-closure pass, a prior cycle, ESKF fusion and a graph solve, must never
-import jax."""
+import jax nor execute a file of the JAX package. Its config copy reads the
+same values as the reference's, and its state constructors default to the
+card."""
 
 import os
 import subprocess
 import sys
 
-import torch_parity  # noqa: F401  (caps torch threads)
+import pytest
+import torch
+
+import torch_parity  # caps torch threads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -57,17 +62,22 @@ from rolo_tpu_torch.prior.ground import GroundMap
 from rolo_tpu_torch.prior.vehicle import from_config
 from rolo_tpu_torch.runtime.cycles import prior_cycle
 bstate, _ = loop_closure_step(bstate, cfg)
-fus = init_fusion(cfg.filter)
+fus = init_fusion(cfg.filter, "cpu")
 for step in range(3):
     fus, _ = on_front_odometry(fus, 0.1 * step, out.pose_rot, out.pose_trans, cfg.filter)
 fus = on_mapping_odometry(fus, bout.rot, bout.trans, out.pose_rot, out.pose_trans)
 ground = GroundMap(xyz.repeat(16, 1), torch.ones(16 * n, dtype=torch.bool))  # >= the patch
-bstate, _ = prior_cycle(fus, 0.2, bstate, ground, from_config(cfg.prior), cfg)
+bstate, _ = prior_cycle(fus, 0.2, bstate, ground, from_config(cfg.prior, "cpu"), cfg)
 bstate = solve_graph_host(bstate, cfg)
 assert int(bstate.db.count) >= 1 and torch.isfinite(bstate.xyz).all()
 assert RoloConfig().static.max_feature_points == 8192
 assert not any(m == "jax" or m.startswith(("jax.", "rolo_tpu.")) or m == "rolo_tpu"
                for m in sys.modules if sys.modules[m] is not None)
+# by file, too: a module of the JAX package loaded under another name
+import os
+ref = os.path.join(os.path.abspath("rolo_tpu"), "")
+loaded = [getattr(m, "__file__", None) for m in list(sys.modules.values()) if m is not None]
+assert not [f for f in loaded if f and os.path.abspath(f).startswith(ref)], loaded
 print("JAX-FREE-OK")
 """
 
@@ -90,3 +100,54 @@ def test_config_shim_matches_reference_defaults():
     assert dataclasses.asdict(RoloConfig()) == dataclasses.asdict(JRoloConfig())
     cfg = load_config(torch_parity.FIXTURE_CONFIG)
     assert cfg.static.max_feature_points == 1536 and cfg.sensor.n_scan == 16
+
+
+CONFIG_FILES = [
+    (torch_parity.FIXTURE_CONFIG,),
+    (os.path.join(REPO, "configs", "rellis", "params.yaml"),
+     os.path.join(REPO, "configs", "rellis", "prior_pose_params.yaml")),
+]
+
+
+@pytest.mark.parametrize("paths", CONFIG_FILES, ids=["sim_bag", "rellis"])
+def test_config_copy_loads_yaml_like_reference(paths):
+    """The port's own copy of the config module reads the same YAML into the
+    same values, field for field, as the JAX package's."""
+    import dataclasses
+
+    from rolo_tpu.config import load_config as jload_config
+
+    from rolo_tpu_torch import config as pc
+
+    got, want = pc.load_config(list(paths)), jload_config(list(paths))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert type(got.registration) is pc.RegistrationConfig
+    assert got != pc.RoloConfig()  # the files do change fields
+
+
+def test_config_copy_executes_no_reference_file():
+    from rolo_tpu_torch import config as pc
+
+    src = open(pc.__file__).read()
+    assert "spec_from_file_location" not in src
+    assert os.path.dirname(os.path.abspath(pc.__file__)).endswith("rolo_tpu_torch")
+
+
+def test_state_constructors_default_to_the_card():
+    """With no device, the state constructors allocate on CUDA: on a machine
+    without a card that raises instead of quietly building CPU state."""
+    from rolo_tpu_torch.config import RoloConfig
+    from rolo_tpu_torch.filter.fusion import init_fusion
+    from rolo_tpu_torch.mapping.backend import init_backend
+    from rolo_tpu_torch.runtime.platform import default_device
+
+    assert default_device() == torch.device("cuda")
+    cfg = torch_parity.small_config()
+    if torch.cuda.is_available():
+        assert init_backend(cfg).db.rot.device.type == "cuda"
+        assert init_fusion(cfg.filter).front_rot.device.type == "cuda"
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_backend(cfg)
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_fusion(RoloConfig().filter)

@@ -103,7 +103,7 @@ def test_loop_prior_and_solve_match_reference():
     jsolved = jbk.solve_graph_host(jstate, cfg)
 
     state, closed = bk.loop_closure_step(state, pcfg)
-    state, matched = prior_cycle(fs, stamp, state, gm, ve.from_config(pcfg.prior), pcfg)
+    state, matched = prior_cycle(fs, stamp, state, gm, ve.from_config(pcfg.prior, "cpu"), pcfg)
     solved = bk.solve_graph_host(state, pcfg)
 
     assert bool(closed) == bool(jclosed) and bool(matched) == bool(jmatched)

@@ -63,7 +63,7 @@ def _descriptors(seeds):
 
 def _sc_dbs(descs, capacity=64):
     jdb = jsc.init_db(capacity)
-    db = sc.init_db(capacity)
+    db = sc.init_db(capacity, device="cpu")
     for d in descs:
         jdb = jsc.add_descriptor(jdb, jnp.asarray(d))
         db = sc.add_descriptor(db, T(d))

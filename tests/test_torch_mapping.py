@@ -88,7 +88,7 @@ def test_voxel_downsample_whole_cloud_matches_reference():
 def test_compact_cloud_and_from_points_match_reference():
     rng = np.random.default_rng(1)
     pts = rng.normal(size=(50, 3)).astype(np.float32)
-    want, got = jcloud.PaddedCloud.from_points(pts, 64), PaddedCloud.from_points(pts, 64)
+    want, got = jcloud.PaddedCloud.from_points(pts, 64), PaddedCloud.from_points(pts, 64, "cpu")
     np.testing.assert_array_equal(got.xyz.numpy(), np.asarray(want.xyz))
     np.testing.assert_array_equal(got.to_numpy(), want.to_numpy())
     mask = rng.random(64) < 0.5
@@ -102,7 +102,7 @@ def _dbs(n=6):
     """The same keyframe DB in both packages: poses along x, random clouds."""
     rng = np.random.default_rng(2)
     jdb = jkf.init_db(16, 64, 128)
-    db = kf.init_db(16, 64, 128)
+    db = kf.init_db(16, 64, 128, "cpu")
     for i in range(n):
         rot = np.asarray(jso3.rpy_to_matrix(jnp.asarray(0.0), jnp.asarray(0.0),
                                             jnp.asarray(0.1 * i)))
@@ -129,8 +129,8 @@ def test_keyframe_db_and_gate_match_reference():
             got = bool(kf.should_add_keyframe(db, SE3(T(rot), T(np.float32(trans))), 0.5, 0.2))
             assert got == want
     # a full DB drops, and counts stay put
-    full = kf.init_db(2, 8, 8)
-    c = PaddedCloud.from_points(np.zeros((3, 3)), 8)
+    full = kf.init_db(2, 8, 8, "cpu")
+    c = PaddedCloud.from_points(np.zeros((3, 3)), 8, "cpu")
     for _ in range(3):
         full = kf.add_keyframe(full, SE3.identity(), 0.0, c, c)
     assert int(full.count) == 2

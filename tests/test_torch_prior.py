@@ -132,7 +132,7 @@ def test_live_ground_map_matches_reference_and_round_trips():
     the numpy bridge in both directions."""
     rng = np.random.default_rng(3)
     jlive = jgr.init_live_ground(2, 256)
-    live = gr.init_live_ground(2, 256)
+    live = gr.init_live_ground(2, 256, "cpu")
     for k in range(3):
         pts = _plane(n=1024, extent=6.0, seed=k, noise=0.02)
         mask = rng.random(1024) < 0.9
@@ -227,7 +227,7 @@ def test_segment_ground_toy_image_shows_the_reference_fault():
 
 
 def _vehicles(cfg):
-    return jve.from_config(cfg), ve.from_config(port_config(cfg))
+    return jve.from_config(cfg), ve.from_config(port_config(cfg), "cpu")
 
 
 def test_vehicle_from_config_matches_reference():
@@ -356,7 +356,7 @@ def _observation(x, cfg=CFG, cap=256):
 def test_push_prior_matches_reference():
     """Three pushes into a two-slot queue (the third wraps to slot 0) and one
     disabled push: the port writes rows in place, the reference copies."""
-    jq, q = jas.init_queue(2, 256), pas.init_queue(2, 256)
+    jq, q = jas.init_queue(2, 256), pas.init_queue(2, 256, "cpu")
     for k, (x, enable) in enumerate([(1.0, True), (2.0, False), (3.0, True), (4.0, True)]):
         jobs, obs = _observation(x)
         rot = np.asarray(_se3(np.eye(3), [0.5 * k, 0.1, 1.0]).rot)

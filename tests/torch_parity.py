@@ -48,6 +48,45 @@ def lidar_cloud(rng, n, spread=0.5, lo=20.0, hi=50.0):
     return (rng.normal(size=(n, 3)) * spread + rng.uniform(lo, hi, size=(n, 1))).astype(np.float32)
 
 
+def knn_instance(rng, case, n):
+    """One K2 test instance: (candidates [n, 3] f32, candidate mask [n])
+    of a lidar cloud; "duplicates" rounds the points and repeats 40 of them
+    (ties at the k-th place), "starved" leaves 6 valid candidates,
+    "all_masked" none."""
+    cand = lidar_cloud(rng, n)
+    cmask = rng.random(n) < 0.9
+    if case == "duplicates":
+        cand = np.round(cand * 4) / 4
+        cand[n // 3:n // 3 + 40] = cand[:40]
+    elif case == "starved":
+        cmask = np.zeros(n, bool)
+        cmask[rng.choice(n, 6, replace=False)] = True
+    elif case == "all_masked":
+        cmask = np.zeros(n, bool)
+    return cand.astype(np.float32), cmask
+
+
+# (case, N) of the K2 tests: N < k, N not a multiple of the kernel's
+# 64-candidate tile
+KNN_CASES = [("lidar", 300), ("duplicates", 257), ("starved", 200), ("all_masked", 128),
+             ("lidar", 12), ("lidar", 131)]
+
+
+def knn_batch(case, n, k):
+    """Two instances (the case, and a lidar instance beside it) as CPU
+    tensors (xyz, mask, cand, cmask) with every fifth query masked and
+    masked coordinates zeroed, as estimate_cov6 hands them to K2."""
+    rng = np.random.default_rng(n * 100 + k)
+    inst = [knn_instance(rng, case, n), knn_instance(rng, "lidar", n)]
+    cmask = torch.tensor(np.stack([m for _, m in inst]))
+    cand = torch.where(cmask[..., None], torch.tensor(np.stack([c for c, _ in inst])), 0.0)
+    q = max(1, n // 2)
+    mask = cmask[:, :q].clone()
+    mask[:, ::5] = False
+    xyz = torch.where(mask[..., None], cand[:, :q], 0.0).contiguous()
+    return xyz, mask, cand.contiguous(), cmask
+
+
 def T(x) -> torch.Tensor:
     """numpy (or a JAX array) -> CPU tensor."""
     return torch.as_tensor(np.array(x))
@@ -168,12 +207,12 @@ def point_set_match(a, b, tol):
 
 def port_config(jcfg):
     """The port's RoloConfig with the values of a JAX package RoloConfig
-    (the two packages load the same dataclasses as separate classes)."""
+    (each package has its own copy of the same dataclasses)."""
     from rolo_tpu_torch import config as pc
 
     def convert(value):
         if dataclasses.is_dataclass(value):
-            cls = getattr(pc._cfg, type(value).__name__)
+            cls = getattr(pc, type(value).__name__)
             return cls(**{f.name: convert(getattr(value, f.name))
                           for f in dataclasses.fields(value)})
         return value
