@@ -35,21 +35,43 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      keyframes' ATE after the final solve is no worse than the front-end's.
      Then one traced loop_closure_step, prior cycle and backend_step, and
      the loop ICP's Kabsch step beside its 1-NN search.
+  6. the runtime lap: `run_frames(SlamSystem(RoloConfig()), frames)` over
+     phase 5's frames, the user's entry point: deskew on (the default),
+     the ESKF, the live ground map and priors, loop closure, and the
+     runtime's own scheduler (at most one queued background task per scan).
+     Raises unless every pose is finite, at least 10 keyframes were added,
+     at least one loop and one prior factor were accepted and a solve ran
+     with both in the graph, the mapped keyframes' ATE after finalize is no
+     worse than the front-end's, both kernels' launch counters rose, and no
+     scan dispatched more than one queued task. Prints the wall time per
+     process_scan (synced at the fused-pose fetch; mapping and other scans
+     apart), scans/s, the stage timers and the tasks per scan. Then
+     checkpoint -> fresh SlamSystem.restore -> the next scan: under
+     deterministic algorithms the original and the restored system must
+     give bit-equal poses; two restored systems by default show the spread
+     of torch's float atomics.
+  7. the command line on recorded data: `python -m rolo_tpu_torch run` on
+     the bag fixture in a subprocess, on the card (which builds librolo_host
+     with g++): rc 0, 12 scans, front-end ATE < 0.5 m, the exports present.
 Then one JSON line lists each kernel: its launches in phase 3's main-path
-run (and in phase 5's, "launches_mapping", and per lap scan), and from
-phase 2 its worst max_abs_err and its ms / plain_ms / bound_ms summed over
-its cases (one call of each; library_ms only where every case has one;
-every case is also under "cases"; the B=1 cases are the shapes of phases 4
-and 5).
+run (and in phase 5's, "launches_mapping", and per lap scan; and in phase
+6's, "launches_runtime"), and from phase 2 its worst max_abs_err and its
+ms / plain_ms / bound_ms summed over its cases (one call of each;
+library_ms only where every case has one; every case is also under
+"cases"; the B=1 cases are the shapes of phases 4-6).
 The line before the last is the card's `nvidia-smi` name and power limit;
 the last line is {"ok": true, "device": {...}}. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import json
+import os
 import statistics
+import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -63,6 +85,7 @@ from rolo_tpu_torch.filter.fusion import (fused_pose, init_fusion, on_front_odom
 from rolo_tpu_torch.frontend.odometry import init_state, run_sequence, scan_step
 from rolo_tpu_torch.loop.closure import detect_loop_distance, kabsch_rotation
 from rolo_tpu_torch.loop.scancontext import detect_loop
+from rolo_tpu_torch.mapping import backend as backend_module
 from rolo_tpu_torch.mapping.backend import (backend_step, init_backend, loop_closure_step,
                                             solve_graph_host)
 from rolo_tpu_torch.ops import cuda_build
@@ -74,11 +97,14 @@ from rolo_tpu_torch.prior.ground import init_live_ground
 from rolo_tpu_torch.prior.vehicle import from_config as vehicle_from_config
 from rolo_tpu_torch.registration.gicp import OFFSETS
 from rolo_tpu_torch.runtime.cycles import ground_update, prior_cycle
+from rolo_tpu_torch.runtime.dataset import run_frames
 from rolo_tpu_torch.runtime.platform import configure_precision, nvidia_smi_name_power
+from rolo_tpu_torch.runtime.slam import SlamSystem
 from rolo_tpu_torch.sim.dataset import generate_sequence
 from rolo_tpu_torch.voxel.knn import estimate_cov6, knn_indices, moment_table
 from rolo_tpu_torch.voxel.voxelmap import build_voxel_map, polar_coord, uniform_coord
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH, STRIDE = bench.BATCH, bench.STRIDE
 N_SEQ = 24  # consecutive scans for the odometry phase (>= BATCH + STRIDE)
 N_MAP = 240  # consecutive scans for the mapping phase: one lap of the 20 s ellipse and 4 s
@@ -590,9 +616,190 @@ def kabsch_timing(device, reps: int = 20):
           f"16384 {cuda_ms(lambda: knn_indices(src, ones[:4096], tgt, ones, 1), reps):.3f} ms")
 
 
+def _percentiles(ms) -> str:
+    if not ms:
+        return "none"
+    a = np.asarray(ms)
+    return (f"p50 {np.percentile(a, 50):.2f} p95 {np.percentile(a, 95):.2f} max {a.max():.2f} ms "
+            f"over {a.size}")
+
+
+def _pose_diff(got: dict, want: dict) -> float:
+    keys = [k for k in want if k.endswith(("_rot", "_trans"))]
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"restored system published {sorted(got)}, the original {sorted(want)}")
+    return max(float((got[k] - want[k]).abs().max()) for k in keys)
+
+
+def runtime_lap(cfg: RoloConfig, frames, device=None):
+    """Phase 6: SlamSystem through run_frames, as a user runs it, with the
+    runtime's own scheduler and deskew. Returns the system and each
+    kernel's launches over the lap. `device` None is the card, as for a
+    user; "cpu" rehearses the phase."""
+    slam = SlamSystem(cfg, device)
+    sync = torch.cuda.synchronize if slam.device.type == "cuda" else (lambda: None)
+    scans, dispatched, solves = [], [], []
+    real_process, real_dispatch = slam.process_scan, slam._dispatch_background
+    real_solve = backend_module.solve_graph_host
+
+    def process(points, stamp, ring=None, rel_time=None):
+        t0 = time.perf_counter()
+        out = real_process(points, stamp, ring=ring, rel_time=rel_time)
+        slam.published()  # the scan's poses on the host, as a real-time consumer reads them
+        scans.append(((time.perf_counter() - t0) * 1e3, "mapped_trans" in out))
+        return out
+
+    def dispatch(task, stamp, out, prof):
+        dispatched.append((len(slam.times), task))
+        return real_dispatch(task, stamp, out, prof)
+
+    def solve(state, *args, **kwargs):  # the factor counts each solve carries, not fetched yet
+        solves.append(torch.stack([state.graph.loops.count, state.graph.priors.count]).clone())
+        return real_solve(state, *args, **kwargs)
+
+    slam.process_scan, slam._dispatch_background = process, dispatch
+    backend_module.solve_graph_host = solve
+    sync()
+    keyed_matmul.launches = 0
+    knn_moments.launches = 0
+    try:
+        t0 = time.perf_counter()
+        res = run_frames(slam, frames)
+        sync()
+        seconds = time.perf_counter() - t0
+    finally:
+        backend_module.solve_graph_host = real_solve
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    del slam.process_scan, slam._dispatch_background
+
+    n = len(frames)
+    times = np.asarray(slam.times)
+    kt, kp, _ = slam.keyframe_trajectory()
+    kf_scans = np.abs(times[None, :] - kt[:, None]).argmin(axis=1).tolist()
+    kf_frames = [frames[i] for i in kf_scans]
+    front = slam.front_positions_np()
+    front_ate = _ate(torch.as_tensor(front[kf_scans]), kf_frames)
+    map_ate = _ate(torch.as_tensor(kp), kf_frames)
+    _, fused, _ = slam.fused_trajectory_np()
+    solve_counts = [tuple(c.tolist()) for c in solves]
+    queued = collections.Counter(i for i, task in dispatched if task != "prior" and i < n)
+    per_scan = collections.Counter(queued[i] for i in range(n))
+    mapped_ms = [ms for ms, mapped in scans if mapped]
+    other_ms = [ms for ms, mapped in scans if not mapped]
+    synced_rate = 1e3 * n / sum(ms for ms, _ in scans)
+    print(f"runtime: {n} scans in {seconds:.2f} s ({synced_rate:.3f} scans/s synced at each "
+          f"fused-pose fetch; run_frames {res.scans_per_s:.3f}), {res.n_keyframes} keyframes, "
+          f"{res.n_loop_factors} loop / {res.n_prior_factors} prior factors; launches {launches}")
+    print(f"runtime: process_scan wall, mapping scans {_percentiles(mapped_ms)}; other scans "
+          f"{_percentiles(other_ms)}")
+    print("runtime: stages " + "; ".join(
+        f"{k} n={v['count']} p50 {v['p50_ms']:.2f} p95 {v['p95_ms']:.2f} max {v['max_ms']:.2f} ms"
+        for k, v in slam.timers.summary().items()))
+    print(f"runtime: queued tasks dispatched per scan {dict(sorted(per_scan.items()))}; "
+          f"dispatches (scan, task) {[d for d in dispatched if d[1] != 'prior']}; "
+          f"{sum(t == 'prior' for _, t in dispatched)} prior cycles; solves with "
+          f"(loops, priors) {solve_counts}; dropped {res.drop_counts}")
+    print(f"runtime: ATE over the {len(kf_scans)} keyframe scans (deskew on): front-end "
+          f"{front_ate:.4f} m, mapped keyframes {map_ate:.4f} m after finalize; aligned "
+          f"(run_frames) front-end {res.ate_frontend.rmse:.4f} m, keyframes "
+          f"{res.ate_keyframes.rmse:.4f} m")
+
+    if not (np.isfinite(front).all() and np.isfinite(kp).all() and np.isfinite(fused).all()):
+        raise AssertionError("non-finite runtime poses")
+    if res.n_keyframes < MIN_KEYFRAMES:
+        raise AssertionError(f"the runtime lap added {res.n_keyframes} keyframes")
+    if res.n_loop_factors < 1 or res.n_prior_factors < 1:
+        raise AssertionError("the runtime lap accepted no loop factor or no prior factor")
+    if not any(a >= 1 and b >= 1 for a, b in solve_counts):
+        raise AssertionError("no runtime solve ran with loop and prior factors in the graph")
+    if not map_ate <= front_ate:
+        raise AssertionError(f"runtime mapped keyframe ATE {map_ate:.4f} m exceeds the "
+                             f"front-end's {front_ate:.4f} m")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} was not launched by SlamSystem")
+    if max(per_scan) > 1:
+        raise AssertionError(f"a scan dispatched more than one queued task: {per_scan}")
+    return slam, launches
+
+
+def restore_check(slam: SlamSystem, next_frame) -> None:
+    """Phase 6, last: checkpoint `slam`, restore fresh systems from it, and
+    run the next scan on each. Under deterministic algorithms the original
+    and a restored system must give the same bits; two more restored systems
+    show how far torch's float atomics on the card (scatter-adds, summed in
+    any order) move one scan's poses by default. Three more restored systems
+    give one traced process_scan (bench.profile_run: kernels, launches, the
+    host's waits for the card)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "slam.npz")
+        t0 = time.perf_counter()
+        slam.checkpoint(path)
+        twins = [SlamSystem(slam.cfg, slam.device) for _ in range(6)]
+        for twin in twins:
+            twin.restore(path)
+        ckpt_s, size = time.perf_counter() - t0, os.path.getsize(path)
+    sync = torch.cuda.synchronize if slam.device.type == "cuda" else (lambda: None)
+
+    def step(system):
+        sync()
+        t0 = time.perf_counter()
+        out = system.process_scan(next_frame.points, next_frame.stamp, ring=next_frame.ring,
+                                  rel_time=next_frame.rel_time)
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (want, det_ms), (got, _) = step(slam), step(twins[0])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (a, ms), (b, _) = step(twins[1]), step(twins[2])
+    diff, spread = _pose_diff(got, want), _pose_diff(a, b)
+    traced = twins[3:]
+    prof = bench.profile_run(lambda: step(traced.pop()))  # host_waits: 2 are step()'s own
+    print(f"profile of one process_scan (the next scan, restored): {json.dumps(prof)}")
+    print(f"runtime: checkpoint + 6 restores {ckpt_s:.2f} s ({size / 1e6:.1f} MB); the next "
+          f"scan ({sorted(want)}): original vs restored under deterministic algorithms, max "
+          f"pose difference {diff:.3e} ({det_ms:.1f} ms a scan); two restored systems by "
+          f"default, {spread:.3e} ({ms:.1f} ms a scan)")
+    if not all(torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError(f"the restored system's next scan differs by {diff:.3e}")
+
+
+def cli_on_recorded_data(timeout: int = 600, device=None):
+    """Phase 7: `python -m rolo_tpu_torch run` on the bag fixture, on the
+    card (`device` None: the CLI's default), in a subprocess killed at the
+    timeout."""
+    fixture = os.path.join(ROOT, "tests", "fixtures", "sim_bag")
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, "-m", "rolo_tpu_torch", "run",
+               "--input", os.path.join(fixture, "seq.bag"),
+               "--config", os.path.join(fixture, "config.yaml"),
+               "--gt", os.path.join(fixture, "gt_tum.txt"), "--output", out]
+        cmd += ["--device", device] if device else []
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout[proc.stdout.index("{"):])
+        missing = [f for f in ("front_end_tum.txt", "optimized_tum.txt", "pose_graph.g2o",
+                               "global_map.pcd") if not os.path.exists(os.path.join(out, f))]
+    print(f"cli: run on the bag fixture in {seconds:.1f} s (process included): {res['n_scans']} "
+          f"scans, front-end ATE {res.get('ate_frontend_rmse_m')} m, keyframe ATE "
+          f"{res.get('ate_keyframes_rmse_m')} m, {res['n_keyframes']} keyframes")
+    if res["n_scans"] != 12 or not res.get("ate_frontend_rmse_m", np.inf) < 0.5:
+        raise AssertionError(f"the CLI's result is outside its bounds: {res}")
+    if missing:
+        raise AssertionError(f"the CLI wrote no {missing}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is false)")
+    # cuBLAS reproducible under deterministic algorithms (phase 6's restore check)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
     configure_precision()
     smi = nvidia_smi_name_power()
@@ -628,13 +835,27 @@ def main() -> int:
     print(f"profile of one batch: {json.dumps(prof)}")
     odometry(cfg, clouds, frames)
     del clouds, frames, pairs
-    map_frames = list(generate_sequence(bench.bench_sim_config(N_MAP), device))
-    map_launches, _, _ = mapping(cfg, map_frames)
+    # one scan past the lap: phase 6's next scan after its checkpoint
+    map_frames = list(generate_sequence(bench.bench_sim_config(N_MAP + 1), device))
+    t0 = time.perf_counter()
+    map_launches, _, _ = mapping(cfg, map_frames[:N_MAP])
+    print(f"phase 5: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    slam, runtime_launches = runtime_lap(cfg, map_frames[:N_MAP])
+    restore_check(slam, map_frames[N_MAP])
+    del slam
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s wall")
+    del map_frames
+    t0 = time.perf_counter()
+    cli_on_recorded_data()
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s wall")
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
          "launches_mapping": map_launches[name],
-         "launches_per_lap_scan": map_launches[name] / N_MAP, **summary[name]}
+         "launches_per_lap_scan": map_launches[name] / N_MAP,
+         "launches_runtime": runtime_launches[name],
+         "launches_per_runtime_scan": runtime_launches[name] / N_MAP, **summary[name]}
         for name in KERNELS]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(smi)

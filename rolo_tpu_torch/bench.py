@@ -114,11 +114,16 @@ def register_batch(src, src_mask, tgt, tgt_mask, guess, reg: RegistrationConfig,
                               dt, dt, reg, voxel_capacity, k)
 
 
+_HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
 def profile_run(run, top: int = 12) -> dict:
     """Where one call of `run` (which must end in a synchronize) spends the
     card's time: wall time without the profiler after a warm call, then one
     torch.profiler trace for the kernels. The busy share is kernel time over
-    the unprofiled wall time."""
+    the unprofiled wall time; `host_waits` counts the host's waits for the
+    card (run's closing synchronize included) and `d2h_copies` the copies
+    to the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -126,18 +131,25 @@ def profile_run(run, top: int = 12) -> dict:
     t0 = time.perf_counter()
     run()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
         run()
     by_name: dict = {}
+    host_waits = d2h = 0
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
             ms, n = by_name.get(evt.name, (0.0, 0))
             by_name[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3, n + 1)
+            d2h += evt.name.startswith("Memcpy DtoH")
+        else:
+            host_waits += evt.name in _HOST_WAITS
     kernel_ms = sum(ms for ms, _ in by_name.values())
     launches = sum(n for _, n in by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "busy_share": kernel_ms / wall_ms,
-            "device_launches": launches,
+            "device_launches": launches, "host_waits": host_waits, "d2h_copies": d2h,
             "top": [{"kernel": name[:90], "ms": ms, "count": n} for name, (ms, n) in rows]}
 
 

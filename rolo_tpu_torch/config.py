@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -468,19 +469,149 @@ def _apply_namespace(cfg: RoloConfig, ns: dict) -> RoloConfig:
     return RoloConfig(**new_sections)
 
 
+# The YAML the reference's parameter files use, read without PyYAML: block
+# mappings by indentation, scalars resolved as yaml.safe_load (YAML 1.1)
+# resolves them, `#` comments, and flow lists that may span lines. Anything
+# else (block sequences, flow mappings, anchors, tags, block scalars,
+# octal / hex / underscored numbers, escapes in quotes, duplicate keys) is
+# refused with its line number rather than read differently.
+_YAML_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_]*$")
+_YAML_INT = re.compile(r"[-+]?(?:0|[1-9][0-9]*)$")
+_YAML_FLOAT = re.compile(r"(?:[-+]?[0-9]+\.[0-9]*|\.[0-9]+)(?:[eE][-+][0-9]+)?$")
+_YAML_SPECIAL = {".inf": math.inf, "+.inf": math.inf, "-.inf": -math.inf}
+_YAML_SPECIAL.update({v.replace("inf", c): x for v, x in list(_YAML_SPECIAL.items())
+                      for c in ("Inf", "INF")})
+_YAML_SPECIAL.update({".nan": math.nan, ".NaN": math.nan, ".NAN": math.nan})
+_YAML_BOOL = {w: b for b, words in ((True, "yes true on"), (False, "no false off"))
+              for word in words.split() for w in (word, word.capitalize(), word.upper())}
+_YAML_NULL = ("~", "null", "Null", "NULL")
+_YAML_NUMBERISH = re.compile(r"[-+.]?[0-9]")
+_YAML_PLAIN_BAD_START = tuple("[]{}&*!|>%@`'\",?:#")
+
+
+def _yaml_error(lineno: int, what: str):
+    return ValueError(f"YAML line {lineno}: {what} (outside the subset the config reader takes)")
+
+
+def _yaml_strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _yaml_scalar(tok: str, lineno: int):
+    if tok[:1] in ("'", '"'):
+        q = tok[0]
+        if len(tok) < 2 or tok[-1] != q or q in tok[1:-1] or "\\" in tok:
+            raise _yaml_error(lineno, f"quoted scalar {tok!r}")
+        return tok[1:-1]
+    if tok in _YAML_NULL:
+        return None
+    if tok in _YAML_BOOL:
+        return _YAML_BOOL[tok]
+    if _YAML_INT.match(tok):
+        return int(tok)
+    if _YAML_FLOAT.match(tok):
+        return float(tok)
+    if tok in _YAML_SPECIAL:
+        return _YAML_SPECIAL[tok]
+    if (tok.startswith(_YAML_PLAIN_BAD_START) or tok == "-" or tok.startswith("- ")
+            or _YAML_NUMBERISH.match(tok) or ": " in tok or " #" in tok or tok.endswith(":")):
+        raise _yaml_error(lineno, f"scalar {tok!r}")
+    return tok
+
+
+def _yaml_flow_list(text: str, lineno: int) -> list:
+    inner = text[1:-1]
+    if not text.endswith("]") or any(c in inner for c in "[]{}'\""):
+        raise _yaml_error(lineno, f"flow collection {text!r}")
+    if not inner.strip():
+        return []
+    items = [item.strip() for item in inner.split(",")]
+    if not all(items):
+        raise _yaml_error(lineno, f"empty flow list item in {text!r}")
+    return [_yaml_scalar(item, lineno) for item in items]
+
+
+def _yaml_lines(text: str) -> list:
+    """(indent, content, line number) of each non-blank line, comments
+    dropped and a flow list's continuation lines joined to its first."""
+    out, depth = [], 0
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _yaml_strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        if line[indent] == "\t":
+            raise _yaml_error(n, "tab indentation")
+        content = line.strip()
+        if depth > 0:
+            out[-1] = (out[-1][0], out[-1][1] + " " + content, out[-1][2])
+        else:
+            out.append((indent, content, n))
+        depth += content.count("[") - content.count("]")
+        if depth < 0:
+            raise _yaml_error(n, "unbalanced ']'")
+    if depth:
+        raise _yaml_error(out[-1][2], "unterminated flow list")
+    return out
+
+
+def _yaml_block(lines: list, i: int, indent: int):
+    out = {}
+    while i < len(lines) and lines[i][0] >= indent:
+        ind, content, n = lines[i]
+        if ind > indent:
+            raise _yaml_error(n, "unexpected indentation")
+        key, sep, rest = content.partition(":")
+        if not sep or not _YAML_KEY.match(key) or (rest and rest[0] != " "):
+            raise _yaml_error(n, f"not a 'key: value' line: {content!r}")
+        if key in out:
+            raise _yaml_error(n, f"duplicate key {key!r}")
+        rest = rest.strip()
+        i += 1
+        if rest.startswith("["):
+            out[key] = _yaml_flow_list(rest, n)
+        elif rest:
+            out[key] = _yaml_scalar(rest, n)
+        elif i < len(lines) and lines[i][0] > indent:
+            out[key], i = _yaml_block(lines, i, lines[i][0])
+        else:
+            out[key] = None
+    return out, i
+
+
+def parse_yaml(text: str):
+    """The mapping a reference-format parameter file holds, equal to
+    yaml.safe_load's on the subset those files use (None for an empty
+    file); anything outside the subset raises ValueError."""
+    lines = _yaml_lines(text)
+    if not lines:
+        return None
+    out, i = _yaml_block(lines, 0, lines[0][0])
+    if i < len(lines):
+        raise _yaml_error(lines[i][2], "indentation below the top-level mapping")
+    return out
+
+
 def load_config(yaml_path=None, overrides: Optional[dict] = None) -> RoloConfig:
     """Load a RoloConfig: defaults <- yaml file(s) (reference key names,
     applied in order — e.g. params.yaml then a per-dataset
     prior_pose_params.yaml, the reference's two-file layout) <- dotted
-    overrides like {"registration.ct_lambda": 0.5}."""
+    overrides like {"registration.ct_lambda": 0.5}. The files are read by
+    `parse_yaml`: the port needs no PyYAML."""
     cfg = RoloConfig()
     if yaml_path is not None:
-        import yaml
-
         paths = [yaml_path] if isinstance(yaml_path, (str, bytes)) else list(yaml_path)
         for p in paths:
             with open(p) as f:
-                ns = yaml.safe_load(f) or {}
+                ns = parse_yaml(f.read()) or {}
             cfg = _apply_namespace(cfg, ns)
     if overrides:
         for dotted, value in overrides.items():

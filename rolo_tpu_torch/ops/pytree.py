@@ -9,7 +9,7 @@ paths with nested tuples flattened ("db.rot", "filter.cov").
 from __future__ import annotations
 
 import typing
-from typing import Mapping
+from typing import Iterator, Mapping
 
 import numpy as np
 import torch
@@ -34,6 +34,26 @@ def tree_to_numpy(state) -> dict:
             value = value.detach().cpu()
         out[key] = np.array(value)
     return out
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of tuples and NamedTuples in JAX's flatten
+    order: field order, depth first, None dropped."""
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    return [tree]
+
+
+def tree_replace_leaves(tree, leaves: Iterator):
+    """`tree` with its leaves, in `tree_leaves` order, taken from `leaves`."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        items = [tree_replace_leaves(item, leaves) for item in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return next(leaves)
 
 
 def tree_from_numpy(cls, arrays: Mapping, device, prefix: str = ""):

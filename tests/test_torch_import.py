@@ -1,7 +1,8 @@
-"""The port runs where JAX does not exist: importing every module of it, its
-own config and chip_smoke.py, and running CPU scan_steps, backend_steps, a
-loop-closure pass, a prior cycle, ESKF fusion and a graph solve, must never
-import jax nor execute a file of the JAX package. Its config copy reads the
+"""The port runs where JAX and PyYAML do not exist: importing every module of
+it, its own config and chip_smoke.py, and running CPU scan_steps,
+backend_steps, a loop-closure pass, a prior cycle, ESKF fusion, a graph solve
+and three SlamSystem scans with a checkpoint and a restore, must never import
+jax or yaml nor execute a file of the JAX package. Its config copy reads the
 same values as the reference's, and its state constructors default to the
 card."""
 
@@ -19,6 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["yaml"] = None  # the card's machine has no PyYAML either
 import torch
 torch.set_num_threads(2)
 import rolo_tpu_torch
@@ -35,6 +37,10 @@ import rolo_tpu_torch.loop.closure, rolo_tpu_torch.pointcloud.ground_seg
 import rolo_tpu_torch.prior.ground, rolo_tpu_torch.prior.vehicle
 import rolo_tpu_torch.filter.eskf, rolo_tpu_torch.filter.fusion
 import rolo_tpu_torch.runtime.cycles, rolo_tpu_torch.sim.dataset
+import rolo_tpu_torch.runtime.slam, rolo_tpu_torch.runtime.dataset, rolo_tpu_torch.runtime.io
+import rolo_tpu_torch.runtime.metrics, rolo_tpu_torch.runtime.profiling
+import rolo_tpu_torch.runtime.bagwriter, rolo_tpu_torch.runtime.viz
+import rolo_tpu_torch.cpp.host, rolo_tpu_torch.__main__
 
 g = torch.Generator().manual_seed(0)
 n = 256
@@ -71,6 +77,22 @@ bstate, _ = prior_cycle(fus, 0.2, bstate, ground, from_config(cfg.prior, "cpu"),
 bstate = solve_graph_host(bstate, cfg)
 assert int(bstate.db.count) >= 1 and torch.isfinite(bstate.xyz).all()
 assert RoloConfig().static.max_feature_points == 8192
+
+# the runtime: three scans through SlamSystem, a checkpoint and a restore
+import os, tempfile
+import numpy as np
+from rolo_tpu_torch.runtime.slam import SlamSystem
+from rolo_tpu_torch.sim.dataset import SimConfig, generate_sequence
+slam = SlamSystem(cfg, device="cpu")
+for frame in generate_sequence(SimConfig(n_scans=3, n_cols=512, sensor="velodyne16"), "cpu"):
+    slam.process_scan(frame.points, frame.stamp, ring=frame.ring, rel_time=frame.rel_time)
+with tempfile.TemporaryDirectory() as tmp:
+    slam.checkpoint(os.path.join(tmp, "ckpt.npz"))
+    again = SlamSystem(cfg, device="cpu")
+    again.restore(os.path.join(tmp, "ckpt.npz"))
+assert torch.equal(again.odom_state.pose_trans, slam.odom_state.pose_trans)
+assert int(again.backend_state.db.count) == int(slam.backend_state.db.count) >= 1
+assert len(slam.times) == 3 and np.isfinite(slam.front_positions_np()).all()
 assert not any(m == "jax" or m.startswith(("jax.", "rolo_tpu.")) or m == "rolo_tpu"
                for m in sys.modules if sys.modules[m] is not None)
 # by file, too: a module of the JAX package loaded under another name

@@ -19,6 +19,7 @@ import torch
 
 torch.set_num_threads(2)  # the suite runs 6 xdist workers
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE_CONFIG = os.path.join(os.path.dirname(__file__), "fixtures", "sim_bag", "config.yaml")
 
 
