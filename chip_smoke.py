@@ -46,16 +46,28 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      scan dispatched more than one queued task. Prints the wall time per
      process_scan (synced at the fused-pose fetch; mapping and other scans
      apart), scans/s, the stage timers and the tasks per scan. Then
-     checkpoint -> fresh SlamSystem.restore -> the next scan: under
-     deterministic algorithms the original and the restored system must
-     give bit-equal poses; two restored systems by default show the spread
-     of torch's float atomics.
+     checkpoint -> fresh SlamSystem.restore -> the next scan: under torch's
+     default algorithms the original and a restored system, and two
+     restored systems, must give bit-equal poses; under deterministic
+     algorithms two more restored systems must too.
   7. the command line on recorded data: `python -m rolo_tpu_torch run` on
      the bag fixture in a subprocess, on the card (which builds librolo_host
      with g++): rc 0, 12 scans, front-end ATE < 0.5 m, the exports present.
+  8. the parallel slice on a one-rank NCCL group at RoloConfig() width, each
+     step timed (`parallel_slice`): (a) registration_batch on phase 3's
+     pairs, bit-equal to register_scan_pair; (b) register_scan_pair_spmd on
+     one pair, within 2e-4 / 2e-3 of register_scan_pair and inside the
+     bench gate; (c) register_se3 and (d) register_multipoint (k = 8) on a
+     consecutive pair inside the bench gate, from the identity or the
+     constant-velocity guess; (e) odometry_batch over two sequences of
+     phase 4's scans, each bit-equal to its run_sequence; (f)
+     prior_solve_batch of 16 keyframe poses on phase 6's live ground map,
+     each bit-equal to solve_pose; (g) dryrun_multichip(1); (h) a
+     GenericEKF predict + update_iterated within 1e-5 of the CPU's.
 Then one JSON line lists each kernel: its launches in phase 3's main-path
-run (and in phase 5's, "launches_mapping", and per lap scan; and in phase
-6's, "launches_runtime"), and from phase 2 its worst max_abs_err and its
+run (and in phase 5's, "launches_mapping", and per lap scan; in phase
+6's, "launches_runtime"; in phase 8's, "launches_parallel"), and from phase
+2 its worst max_abs_err and its
 ms / plain_ms / bound_ms summed over its cases (one call of each;
 library_ms only where every case has one; every case is also under
 "cases"; the B=1 cases are the shapes of phases 4-6).
@@ -68,6 +80,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -80,9 +93,12 @@ import torch
 
 from rolo_tpu_torch import bench
 from rolo_tpu_torch.config import RoloConfig
+from rolo_tpu_torch.filter import manifold
 from rolo_tpu_torch.filter.fusion import (fused_pose, init_fusion, on_front_odometry,
                                           on_mapping_odometry)
 from rolo_tpu_torch.frontend.odometry import init_state, run_sequence, scan_step
+from rolo_tpu_torch.geometry import so3
+from rolo_tpu_torch.graft_entry import dryrun_multichip
 from rolo_tpu_torch.loop.closure import detect_loop_distance, kabsch_rotation
 from rolo_tpu_torch.loop.scancontext import detect_loop
 from rolo_tpu_torch.mapping import backend as backend_module
@@ -92,10 +108,16 @@ from rolo_tpu_torch.ops import cuda_build
 from rolo_tpu_torch.ops.knn_moments import knn_moments, knn_moments_torch, morton_order
 from rolo_tpu_torch.ops.voxel_join import (INVALID_PACK, keyed_matmul, keyed_matmul_torch,
                                            pack_polar, pack_uniform)
+from rolo_tpu_torch.parallel import (odometry_batch, prior_solve_batch, register_scan_pair_spmd,
+                                     registration_batch, shard_registration_inputs)
+from rolo_tpu_torch.parallel.mesh import distributed_init, make_mesh
 from rolo_tpu_torch.pointcloud.cloud import PaddedCloud, concat_clouds
 from rolo_tpu_torch.prior.ground import init_live_ground
 from rolo_tpu_torch.prior.vehicle import from_config as vehicle_from_config
+from rolo_tpu_torch.prior.vehicle import solve_pose
+from rolo_tpu_torch.registration.experimental import make_problem, register_multipoint
 from rolo_tpu_torch.registration.gicp import OFFSETS
+from rolo_tpu_torch.registration.rotgicp import register_scan_pair, register_se3
 from rolo_tpu_torch.runtime.cycles import ground_update, prior_cycle
 from rolo_tpu_torch.runtime.dataset import run_frames
 from rolo_tpu_torch.runtime.platform import configure_precision, nvidia_smi_name_power
@@ -200,7 +222,7 @@ def kernel_cases(cfg: RoloConfig, src, src_mask, tgt, tgt_mask):
     table = torch.sort(pack, dim=-1).values.contiguous()
 
     def build():  # build_voxel_map's K1 part: one sort, one gather, run sums
-        sp, order = torch.sort(pack, dim=-1)
+        sp, order = torch.sort(pack, dim=-1, stable=True)
         return keyed_matmul(torch.gather(data, 2, order[:, None].expand_as(data)), sp, sp,
                             keys_sorted=True)
 
@@ -231,6 +253,11 @@ def kernel_cases(cfg: RoloConfig, src, src_mask, tgt, tgt_mask):
 
     n_valid = tgt_mask.sum(dim=1).double()
     pairs = float((n_valid * n_valid).sum())  # valid queries x valid candidates
+    # the first half of the points as the queries, against all of them: the
+    # source shard of register_scan_pair_spmd on two ranks
+    q_shard = xyz[:, :xyz.shape[1] // 2].contiguous()
+    qm_shard = tgt_mask[:, :xyz.shape[1] // 2].contiguous()
+    shard_pairs = float((qm_shard.sum(dim=1).double() * n_valid).sum())
     return [
         {"name": "keyed_sum", "case": f"build [10,{n}]->{n} (sort included)",
          "kernel": build, "plain": lambda: keyed_matmul_torch(data, pack, table),
@@ -239,7 +266,7 @@ def kernel_cases(cfg: RoloConfig, src, src_mask, tgt, tgt_mask):
                                                                                       rows),
          "library_note": "zeros + index_add_ of the value columns into their slots "
                          "(the slot computation excluded)",
-         "parts": {"torch.sort": lambda: torch.sort(pack, dim=-1)}},
+         "parts": {"torch.sort": lambda: torch.sort(pack, dim=-1, stable=True)}},
         {"name": "keyed_sum", "case": f"join polar M={q1.shape[1]}",
          "kernel": lambda: keyed_matmul(vmap.stats, vmap.pack, q1, keys_sorted=True,
                                         run_heads=True),
@@ -258,6 +285,15 @@ def kernel_cases(cfg: RoloConfig, src, src_mask, tgt, tgt_mask):
          "library": None,
          "library_note": "none: no PyTorch call selects k neighbours and sums their moments",
          "parts": {"Morton order": lambda: morton_order(xyz, tgt_mask)}},
+        {"name": "knn_moments", "case": f"Q={q_shard.shape[1]} of N={xyz.shape[1]} k={k} "
+                                         "(an SPMD shard at D=2)",
+         "kernel": lambda: knn_moments(q_shard, qm_shard, xyz, tgt_mask, xc, k),
+         "plain": lambda: knn_moments_torch(q_shard, qm_shard, xyz, tgt_mask, xc, k),
+         "bound": bound_ms(8.0 * shard_pairs, _nbytes(q_shard, qm_shard, xyz, tgt_mask, xc)
+                           + 4 * xc.shape[0] * xc.shape[1] * q_shard.shape[1]),
+         "library": None,
+         "library_note": "none: no PyTorch call selects k neighbours and sums their moments",
+         "parts": {"Morton order of the queries": lambda: morton_order(q_shard, qm_shard)}},
     ]
 
 
@@ -725,17 +761,17 @@ def runtime_lap(cfg: RoloConfig, frames, device=None):
 
 def restore_check(slam: SlamSystem, next_frame) -> None:
     """Phase 6, last: checkpoint `slam`, restore fresh systems from it, and
-    run the next scan on each. Under deterministic algorithms the original
-    and a restored system must give the same bits; two more restored systems
-    show how far torch's float atomics on the card (scatter-adds, summed in
-    any order) move one scan's poses by default. Three more restored systems
-    give one traced process_scan (bench.profile_run: kernels, launches, the
-    host's waits for the card)."""
+    run the next scan on each. Under torch's default algorithms the original
+    and a restored system, and two restored systems, must give the same
+    bits (the port sums in a fixed order, no float atomics); under
+    deterministic algorithms two more restored systems must too. Three more
+    restored systems give one traced process_scan (bench.profile_run:
+    kernels, launches, the host's waits for the card)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "slam.npz")
         t0 = time.perf_counter()
         slam.checkpoint(path)
-        twins = [SlamSystem(slam.cfg, slam.device) for _ in range(6)]
+        twins = [SlamSystem(slam.cfg, slam.device) for _ in range(8)]
         for twin in twins:
             twin.restore(path)
         ckpt_s, size = time.perf_counter() - t0, os.path.getsize(path)
@@ -749,22 +785,27 @@ def restore_check(slam: SlamSystem, next_frame) -> None:
         sync()
         return out, (time.perf_counter() - t0) * 1e3
 
+    (want, ms), (got, _) = step(slam), step(twins[0])
+    (a, _), (b, _) = step(twins[1]), step(twins[2])
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        (want, det_ms), (got, _) = step(slam), step(twins[0])
+        (c, det_ms), (d, _) = step(twins[3]), step(twins[4])
     finally:
         torch.use_deterministic_algorithms(False)
-    (a, ms), (b, _) = step(twins[1]), step(twins[2])
-    diff, spread = _pose_diff(got, want), _pose_diff(a, b)
-    traced = twins[3:]
+    diff, spread, det_spread = _pose_diff(got, want), _pose_diff(a, b), _pose_diff(c, d)
+    traced = twins[5:]
     prof = bench.profile_run(lambda: step(traced.pop()))  # host_waits: 2 are step()'s own
     print(f"profile of one process_scan (the next scan, restored): {json.dumps(prof)}")
-    print(f"runtime: checkpoint + 6 restores {ckpt_s:.2f} s ({size / 1e6:.1f} MB); the next "
-          f"scan ({sorted(want)}): original vs restored under deterministic algorithms, max "
-          f"pose difference {diff:.3e} ({det_ms:.1f} ms a scan); two restored systems by "
-          f"default, {spread:.3e} ({ms:.1f} ms a scan)")
-    if not all(torch.equal(got[k], want[k]) for k in want):
-        raise AssertionError(f"the restored system's next scan differs by {diff:.3e}")
+    print(f"runtime: checkpoint + 8 restores {ckpt_s:.2f} s ({size / 1e6:.1f} MB); the next "
+          f"scan ({sorted(want)}) by default: original vs restored, max pose difference "
+          f"{diff:.3e}; two restored systems {spread:.3e} ({ms:.1f} ms a scan); under "
+          f"deterministic algorithms two restored systems {det_spread:.3e} ({det_ms:.1f} ms a "
+          f"scan)")
+    for name, x, y in (("the original and its restored twin", want, got),
+                       ("two restored twins", a, b),
+                       ("two restored twins under deterministic algorithms", c, d)):
+        if not all(torch.equal(x[k], y[k]) for k in y):
+            raise AssertionError(f"{name} differ in the next scan by {_pose_diff(x, y):.3e}")
 
 
 def cli_on_recorded_data(timeout: int = 600, device=None):
@@ -793,6 +834,200 @@ def cli_on_recorded_data(timeout: int = 600, device=None):
         raise AssertionError(f"the CLI's result is outside its bounds: {res}")
     if missing:
         raise AssertionError(f"the CLI wrote no {missing}")
+
+
+SPMD_ROT, SPMD_TRANS = 2e-4, 2e-3  # tests/test_parallel.py:239-244
+
+
+def _equal_fields(got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _pose_ekf():
+    """tests/test_manifold.py's pose filter: (pos, SO3 rot, vel, omega, acc,
+    alpha) with a constant-jerk process and a pose measurement."""
+    decl = [("pos", manifold.Vect(3)), ("rot", manifold.SO3()), ("vel", manifold.Vect(3)),
+            ("omega", manifold.Vect(3)), ("acc", manifold.Vect(3)), ("alpha", manifold.Vect(3))]
+
+    def process(x, dt):
+        rot_vec = dt * (x["omega"] + 0.5 * dt * x["alpha"])
+        return {"pos": x["pos"] + dt * (x["vel"] + 0.5 * dt * x["acc"]),
+                "rot": x["rot"] @ so3.exp(rot_vec), "vel": x["vel"] + dt * x["acc"],
+                "omega": x["omega"] + dt * x["alpha"], "acc": x["acc"], "alpha": x["alpha"]}
+
+    return manifold.GenericEKF(decl=decl, process=process,
+                               measure=lambda x: {"pos": x["pos"], "rot": x["rot"]},
+                               meas_decl=[("pos", manifold.Vect(3)), ("rot", manifold.SO3())])
+
+
+def generic_ekf_step(device):
+    """One GenericEKF predict + update_iterated from a seeded state: (state
+    dict, covariance) on the CPU."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x = {k: (torch.randn(3, generator=g) * 0.5) for k in ("pos", "vel", "omega", "acc", "alpha")}
+    x["rot"] = so3.exp(torch.randn(3, generator=g) * 0.4)
+    p = torch.diag(torch.rand(18, generator=g) * 0.1 + 0.01)
+    q = torch.diag(torch.cat([torch.zeros(12), torch.full((6,), 1e-4)]))
+    z = {"pos": x["pos"] + torch.randn(3, generator=g) * 0.3,
+         "rot": x["rot"] @ so3.exp(torch.randn(3, generator=g) * 0.1)}
+    r = torch.diag(torch.tensor([0.01] * 3 + [0.001] * 3))
+    on = {k: v.to(device) for k, v in x.items()}
+    ekf = _pose_ekf()
+    on, pc = manifold.predict(ekf, on, p.to(device), q.to(device), 0.1)
+    on, pc = manifold.update_iterated(ekf, on, pc, {k: v.to(device) for k, v in z.items()},
+                                      r.to(device), iterations=4)
+    return {k: v.cpu() for k, v in on.items()}, pc.cpu()
+
+
+def parallel_slice(cfg: RoloConfig, pairs, clouds, frames, ground, device):
+    """Phase 8: this slice's paths at RoloConfig() width on a one-rank
+    process group (NCCL on the card), each step timed, with the kernels'
+    launches counted over the whole phase. `pairs` are phase 3's bench
+    pairs, `clouds` / `frames` phase 4's scans, `ground` (map, keyframe
+    positions, keyframe yaws) the runtime lap's live ground map."""
+    reg, st = cfg.registration, cfg.static
+    cap, k = st.max_voxels, reg.k_correspondences
+    src, sm, tgt, tm, gt_rot, gt_trans = pairs
+    sync = torch.cuda.synchronize if src.is_cuda else (lambda: None)
+    times = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    def gate(name, rot, trans, g_rot, g_trans):
+        rot_err, trans_err = bench.pose_errors(rot, trans, g_rot, g_trans)
+        ok = (float(rot_err.max()) < bench.GATE_ROT_DEG
+              and float(trans_err.max()) < bench.GATE_TRANS_M)
+        return ok, f"{name}: {float(rot_err.max()):.4f} deg / {float(trans_err.max()):.5f} m"
+
+    if device.type == "cuda":
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        distributed_init(f"localhost:{port}", 1, 0, backend="nccl")
+    mesh = make_mesh(device_type=device.type)
+    point_mesh = make_mesh(axis_names=("point",), device_type=device.type)
+    print(f"parallel: one-rank group, backend {torch.distributed.get_backend()}")
+    sync()
+    keyed_matmul.launches = 0
+    knn_moments.launches = 0
+    t_phase = time.perf_counter()
+
+    # (a) registration_batch on the bench pairs: the rank's slice is all 16
+    want = bench.register_batch(src, sm, tgt, tm, torch.zeros_like(gt_trans), reg, cap, k)
+    got = timed("a registration_batch", lambda: registration_batch(
+        *shard_registration_inputs(mesh, src, sm, tgt, tm, interval=0.2), cfg=reg,
+        voxel_capacity=cap, k=k))
+    if not _equal_fields(got, want):
+        raise AssertionError("registration_batch differs from register_scan_pair")
+    print(f"parallel (a): registration_batch of {src.shape[0]} pairs bit-equal to "
+          f"register_scan_pair")
+
+    # (b) the batch's median pair (by (a)'s translation error, the lower of
+    # the middle two) with its points split over the group
+    _, trans_err = bench.pose_errors(want.rot, want.trans, gt_rot, gt_trans)
+    i = int(np.argsort(trans_err)[(len(trans_err) - 1) // 2])
+    zero = torch.zeros(3, device=device)
+    dt = torch.tensor(0.2, device=device)
+    one = register_scan_pair(src[i:i + 1], sm[i:i + 1], tgt[i:i + 1], tm[i:i + 1], zero[None],
+                             zero[None], dt[None], dt[None], reg, cap, k)
+    sp = timed("b register_scan_pair_spmd", lambda: register_scan_pair_spmd(
+        point_mesh, src[i], sm[i], tgt[i], tm[i], zero, zero, dt, dt, reg, cap, k))
+    d_rot = float((sp.rot - one.rot[0]).abs().max())
+    d_trans = float((sp.trans - one.trans[0]).abs().max())
+    ok, msg = gate(f"spmd on pair {i} against ground truth", sp.rot[None], sp.trans[None],
+                   gt_rot[i:i + 1], gt_trans[i:i + 1])
+    print(f"parallel (b): register_scan_pair_spmd vs register_scan_pair max |diff| rot "
+          f"{d_rot:.3e}, trans {d_trans:.3e} m (limits {SPMD_ROT:g} / {SPMD_TRANS:g}); {msg}")
+    if not (d_rot <= SPMD_ROT and d_trans <= SPMD_TRANS and ok):
+        raise AssertionError("register_scan_pair_spmd outside its limits")
+
+    # (c), (d) SE(3) and multi-point GICP on the consecutive pair (0, 1)
+    # from the identity; one that fails the gate there runs again on the
+    # pair (1, 2) from the constant-velocity guess, the motion of (0, 1)
+    def consecutive(i):
+        g_rot, g_trans = bench.gt_relative(frames[i].gt_rot, frames[i].gt_trans,
+                                           frames[i + 1].gt_rot, frames[i + 1].gt_trans)
+        return (clouds[i].xyz[None], clouds[i].mask[None], clouds[i + 1].xyz[None],
+                clouds[i + 1].mask[None]), (g_rot[None], g_trans[None])
+
+    solvers = {
+        "c register_se3": lambda c, r0, t0: register_se3(*c, r0, t0, reg, cap, k),
+        "d register_multipoint": lambda c, r0, t0: register_multipoint(
+            make_problem(*c, k_cov=k), r0, t0, k=8),
+    }
+    starts = [(0, torch.eye(3, device=device)[None], torch.zeros(1, 3, device=device),
+               "the identity"), (1, *consecutive(0)[1], "the constant-velocity guess")]
+    for name, solve in solvers.items():
+        for i, r0, t0, start in starts:
+            cloud, (g_rot, g_trans) = consecutive(i)
+            res = timed(f"{name} from {start}", lambda: solve(cloud, r0, t0))
+            ok, msg = gate(f"{name[2:]} on scans ({i}, {i + 1}) from {start}", res.rot,
+                           res.trans, g_rot, g_trans)
+            print(f"parallel ({name[0]}): {msg}, converged {bool(res.converged[0])}, "
+                  f"{int(res.iterations[0])} iterations")
+            if ok:
+                break
+        else:
+            raise AssertionError(f"{name[2:]} outside the bench gate")
+
+    # (e) odometry_batch: phase 4's scans forward and backward, two sequences
+    xyz = torch.stack([c.xyz for c in clouds])
+    mask = torch.stack([c.mask for c in clouds])
+    seqs = (torch.stack([xyz, xyz.flip(0)]), torch.stack([mask, mask.flip(0)]))
+    intervals = torch.full(seqs[1].shape[:2], 0.1, device=device)
+    outs = timed("e odometry_batch", lambda: odometry_batch(*seqs, intervals, reg, cap, k))
+    singles = timed("e run_sequence x2", lambda: [run_sequence(seqs[0][i], seqs[1][i],
+                                                              intervals[i], reg, cap, k)
+                                                  for i in range(2)])
+    for i, single in enumerate(singles):
+        if not _equal_fields(single, [f[i] for f in outs]):
+            raise AssertionError(f"odometry_batch sequence {i} differs from its run_sequence")
+    print(f"parallel (e): odometry_batch over 2 sequences of {xyz.shape[0]} scans bit-equal to "
+          f"each run_sequence")
+
+    # (f) prior_solve_batch at B=16 on the lap's ground map
+    gm, kf_xy, kf_yaw = ground
+    pick = torch.linspace(0, kf_xy.shape[0] - 1, 16).round().long()
+    qx, qy, qyaw = (t.to(device) for t in (kf_xy[pick, 0], kf_xy[pick, 1], kf_yaw[pick]))
+    vehicle = vehicle_from_config(cfg.prior, device)
+    batch = timed("f prior_solve_batch", lambda: prior_solve_batch(gm, vehicle, qx, qy, qyaw,
+                                                                   cfg.prior))
+    scalars = timed("f solve_pose x16", lambda: [solve_pose(gm, vehicle, qx[i], qy[i], qyaw[i],
+                                                            cfg.prior) for i in range(16)])
+    for i, one_res in enumerate(scalars):
+        if not _equal_fields(one_res, [f[i] for f in batch]):
+            raise AssertionError(f"prior_solve_batch instance {i} differs from solve_pose")
+    print(f"parallel (f): prior_solve_batch of 16 keyframe poses bit-equal to solve_pose; "
+          f"{int(batch.converged.sum())} converged, {int(batch.success.sum())} succeeded")
+
+    # (g) the dry run on this group
+    timed("g dryrun_multichip(1)", lambda: dryrun_multichip(1, device))
+
+    # (h) the generic manifold EKF on the card against the CPU
+    got_x, got_p = timed("h GenericEKF", lambda: generic_ekf_step(device))
+    want_x, want_p = generic_ekf_step("cpu")
+    ekf_err = max([float((got_x[name] - want_x[name]).abs().max()) for name in want_x]
+                  + [float((got_p - want_p).abs().max() / max(1.0, float(want_p.abs().max())))])
+    print(f"parallel (h): GenericEKF predict + update_iterated, card vs CPU max err "
+          f"{ekf_err:.3e} (tol 1e-5)")
+    if not ekf_err <= 1e-5:
+        raise AssertionError("GenericEKF on the card disagrees with the CPU")
+
+    sync()
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    print(f"parallel: phase 8 steps wall s {json.dumps({n: round(t, 3) for n, t in times.items()})}"
+          f", {time.perf_counter() - t_phase:.1f} s in all; launches {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched in phase 8")
+    torch.distributed.destroy_process_group()
+    return launches
 
 
 def main() -> int:
@@ -834,7 +1069,6 @@ def main() -> int:
     prof = bench.profile_batch(*pairs[:4], reg, cfg.static.max_voxels, reg.k_correspondences)
     print(f"profile of one batch: {json.dumps(prof)}")
     odometry(cfg, clouds, frames)
-    del clouds, frames, pairs
     # one scan past the lap: phase 6's next scan after its checkpoint
     map_frames = list(generate_sequence(bench.bench_sim_config(N_MAP + 1), device))
     t0 = time.perf_counter()
@@ -843,19 +1077,28 @@ def main() -> int:
     t0 = time.perf_counter()
     slam, runtime_launches = runtime_lap(cfg, map_frames[:N_MAP])
     restore_check(slam, map_frames[N_MAP])
-    del slam
+    db = slam.backend_state.db
+    n_kf = int(db.count)
+    ground = (slam.live_ground.as_ground_map(), db.trans[:n_kf, :2].clone(),
+              torch.atan2(db.rot[:n_kf, 1, 0], db.rot[:n_kf, 0, 0]))
+    del slam, db
     print(f"phase 6: {time.perf_counter() - t0:.1f} s wall")
     del map_frames
     t0 = time.perf_counter()
     cli_on_recorded_data()
     print(f"phase 7: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    parallel_launches = parallel_slice(cfg, pairs, clouds, frames, ground, device)
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s wall")
+    del clouds, frames, pairs, ground
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
          "launches_mapping": map_launches[name],
          "launches_per_lap_scan": map_launches[name] / N_MAP,
          "launches_runtime": runtime_launches[name],
-         "launches_per_runtime_scan": runtime_launches[name] / N_MAP, **summary[name]}
+         "launches_per_runtime_scan": runtime_launches[name] / N_MAP,
+         "launches_parallel": parallel_launches[name], **summary[name]}
         for name in KERNELS]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(smi)

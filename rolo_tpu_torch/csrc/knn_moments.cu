@@ -424,11 +424,13 @@ box_kernel(const float4* __restrict__ cand, float4* __restrict__ box, int N) {
 }
 
 // Slices per query group: the fewest (a power of two up to kWarps) that
-// give about 64 warps for each of the 132 SMs. A group's sweeps are
-// latency-bound chains, and dense groups take the longest, so slices pay
-// even where the query groups alone would fill the card (B = 16 gets 4).
-int slices(int B, int Q) {
-  const long long warps = (long long)B * ((Q + 31) / 32);
+// give one instance about 64 warps for each of the 132 SMs. A group's
+// sweeps are latency-bound chains, and dense groups take the longest, so
+// slices pay even where the query groups alone would fill the card. The
+// count follows the instance, not the batch: the slices' partial sums merge
+// in a fixed order, so a query gets the same bits in a batch of any size.
+int slices(int Q) {
+  const long long warps = (Q + 31) / 32;
   int P = 1;
   while (P < kWarps && warps * P < 132LL * 64) P <<= 1;
   return P;
@@ -485,7 +487,7 @@ extern "C" int rolo_knn_moments(const float* xyz, const uint8_t* qmask, const in
   if (B <= 0 || Q <= 0 || N < 0 || S <= 0 || S > kMaxPlanes || k < 1 || k > kMaxK || iters < 0)
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
-  const int P = slices(B, Q);
+  const int P = slices(Q);
   const int groups = kWarps / P;
   const int qwarps = (Q + 31) / 32;
   const dim3 grid((qwarps + groups - 1) / groups, B);

@@ -1,5 +1,7 @@
 """SE(3) rigid transforms as (R, t) pairs, torch port of
-`rolo_tpu/geometry/se3.py`."""
+`rolo_tpu/geometry/se3.py`. `exp`, which the LM steps take, forms its
+products with `ops.linalg.small_matmul`, so a batch rounds each step as
+alone."""
 
 from __future__ import annotations
 
@@ -7,6 +9,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops.linalg import small_matmul
 from . import so3
 
 
@@ -75,12 +78,12 @@ def exp(xi: torch.Tensor) -> SE3:
     theta = torch.sqrt(safe_sq)
     rot = so3.exp(omega)
     omega_hat = so3.skew(omega)
-    omega_sq = omega_hat @ omega_hat
+    omega_sq = small_matmul(omega_hat, omega_hat)
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(omega_hat.shape)
     a = torch.where(small, 0.5, (1.0 - torch.cos(theta)) / safe_sq)
     b = torch.where(small, 1.0 / 6.0, (theta - torch.sin(theta)) / (safe_sq * theta))
     v = eye + a[..., None, None] * omega_hat + b[..., None, None] * omega_sq
-    return SE3(rot, (v @ rho[..., None])[..., 0])
+    return SE3(rot, small_matmul(v, rho[..., None])[..., 0])
 
 
 def log(t: SE3) -> torch.Tensor:

@@ -84,13 +84,20 @@ def matrix_to_quat(r: torch.Tensor) -> torch.Tensor:
 
 
 def exp(omega: torch.Tensor) -> torch.Tensor:
-    """Axis-angle [..., 3] -> rotation matrix [..., 3, 3]."""
+    """Axis-angle [..., 3] -> rotation matrix [..., 3, 3]. An unbatched
+    argument goes through as a batch of one: forward-mode autodiff
+    (filter/manifold.py's jacfwd) promotes a 0-dim f32 tangent combined with
+    a Python float to f64."""
+    if omega.dim() == 1:
+        return quat_to_matrix(exp_quat(omega[None]))[0]
     return quat_to_matrix(exp_quat(omega))
 
 
 def log(r: torch.Tensor) -> torch.Tensor:
     """Rotation matrix [..., 3, 3] -> axis-angle [..., 3] via the quaternion
-    (so3.py:104-121)."""
+    (so3.py:104-121); an unbatched argument as a batch of one, as in `exp`."""
+    if r.dim() == 2:
+        return log(r[None])[0]
     q = matrix_to_quat(r)
     w = torch.clamp(q[..., 0], -1.0, 1.0)
     vec = q[..., 1:]

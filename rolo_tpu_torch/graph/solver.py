@@ -14,9 +14,11 @@ and Cauchy IRLS weights on robust factors. Three linear solvers:
           "chain" (exact block-tridiagonal chain solve) or "jacobi"
           preconditioner.
 
-`lax.while_loop`s become Python loops with one host check per iteration;
-`.at[].add` scatter sums become `index_add_` in f32, which is atomic on CUDA,
-so sums there are reproducible only to rounding.
+`lax.while_loop`s become Python loops with one host check per iteration.
+The `.at[].add` scatter sums become fixed-order segment sums
+(`ops/segment.py`) over factor ids sorted once per linearization, not float
+`index_add_`, whose CUDA atomics sum in another order on every call: a solve
+gives the same bits each time it runs.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from ..geometry import se3, so3
 from ..geometry.se3 import SE3
 from ..ops.linalg import cholesky_solve_unrolled_mat, inv_psd_unrolled
+from ..ops.segment import Segments, segment_sum, segments
 from .factors import FIRST_PRIOR_VARIANCES, ODOM_VARIANCES, BetweenFactors, PoseGraph
 
 
@@ -112,6 +115,7 @@ class FactorBlocks(NamedTuple):
     info_w: torch.Tensor  # [F, 6] diagonal information (1/var * irls)
     res: torch.Tensor  # [F, 6]
     valid: torch.Tensor  # [F] bool
+    pose_segs: Segments  # the poses of cat([i, j]), sorted once per linearization
 
 
 def _linearize(graph: PoseGraph, rot, trans, count) -> FactorBlocks:
@@ -145,15 +149,17 @@ def _linearize(graph: PoseGraph, rot, trans, count) -> FactorBlocks:
     li, lj, res_l, ji_l, jj_l, info_l, valid_l = between_blocks(graph.loops)
     gi, gj, res_g, ji_g, jj_g, info_g, valid_g = between_blocks(graph.priors)
     zero1 = idx.new_zeros(1)
+    fi, fj = torch.cat([prev, zero1, li, gi]), torch.cat([idx, zero1, lj, gj])
     return FactorBlocks(
-        i=torch.cat([prev, zero1, li, gi]),
-        j=torch.cat([idx, zero1, lj, gj]),
+        i=fi,
+        j=fj,
         jac_i=torch.cat([ji_o, torch.zeros_like(jj_p), ji_l, ji_g]),
         jac_j=torch.cat([jj_o, jj_p, jj_l, jj_g]),
         info_w=torch.cat([info_o, info_p, info_l, info_g]),
         res=torch.cat([res_o, res_p, res_l, res_g]),
         valid=torch.cat([odom_valid, torch.ones(1, dtype=torch.bool, device=dev), valid_l,
                          valid_g]),
+        pose_segs=segments(torch.cat([fi, fj]), k),
     )
 
 
@@ -167,15 +173,15 @@ def _hessian_diag_blocks(blocks: FactorBlocks, k: int) -> torch.Tensor:
     """[K, 6, 6] block diagonal of H (solver.py:119-127)."""
     hii = blocks.jac_i.transpose(1, 2) @ _weighted(blocks, blocks.jac_i)
     hjj = blocks.jac_j.transpose(1, 2) @ _weighted(blocks, blocks.jac_j)
-    out = blocks.res.new_zeros(k, 6, 6)
-    return out.index_add_(0, blocks.i, hii).index_add_(0, blocks.j, hjj)
+    return segment_sum(torch.cat([hii, hjj]), blocks.pose_segs)
 
 
 def _scatter_jt(blocks: FactorBlocks, u: torch.Tensor, k: int) -> torch.Tensor:
     """sum over factors of J_i^T u at pose i and J_j^T u at pose j: [K, 6]."""
-    out = u.new_zeros(k, 6)
-    out.index_add_(0, blocks.i, (blocks.jac_i.transpose(1, 2) @ u[..., None])[..., 0])
-    return out.index_add_(0, blocks.j, (blocks.jac_j.transpose(1, 2) @ u[..., None])[..., 0])
+    del k  # the segments know the pose count
+    return segment_sum(torch.cat([(blocks.jac_i.transpose(1, 2) @ u[..., None])[..., 0],
+                                  (blocks.jac_j.transpose(1, 2) @ u[..., None])[..., 0]]),
+                       blocks.pose_segs)
 
 
 def _matvec(blocks: FactorBlocks, v: torch.Tensor, damping: float) -> torch.Tensor:
@@ -223,9 +229,9 @@ def _dense_hessian(blocks: FactorBlocks, k: int, damping, active: torch.Tensor) 
     idx = torch.cat([blocks.i * k + blocks.i, blocks.j * k + blocks.j,
                      blocks.i * k + blocks.j, blocks.j * k + blocks.i])
     upd = torch.cat([hii.reshape(f, 36), hjj.reshape(f, 36), hij.reshape(f, 36),
-                     hij.transpose(1, 2).reshape(f, 36)]).T  # [36, 4F]
-    flat = blocks.res.new_zeros(36, k * k).index_add_(1, idx, upd)
-    h = flat.reshape(6, 6, k, k).permute(2, 0, 3, 1).reshape(k * 6, k * 6)
+                     hij.transpose(1, 2).reshape(f, 36)])  # [4F, 36]
+    flat = segment_sum(upd, segments(idx, k * k))  # [K * K, 36]
+    h = flat.reshape(k, k, 6, 6).permute(0, 2, 1, 3).reshape(k * 6, k * 6)
     diag_add = torch.where(active[:, 0], torch.as_tensor(damping, dtype=h.dtype,
                                                          device=h.device), 1.0)
     return h + torch.diag(diag_add.repeat_interleave(6))
@@ -239,10 +245,12 @@ def _chain_parts(blocks: FactorBlocks, k: int, damping, active):
     ji, jj = blocks.jac_i[:k], blocks.jac_j[:k]
     wji = _weighted(blocks, blocks.jac_i)[:k]
     wjj = _weighted(blocks, blocks.jac_j)[:k]
-    idx = torch.arange(k, device=dev)
-    d = blocks.res.new_zeros(k, 6, 6)
-    d.index_add_(0, torch.clamp(idx - 1, min=0), ji.transpose(1, 2) @ wji)
-    d.index_add_(0, idx, jj.transpose(1, 2) @ wjj)
+    # chain row f adds J_i^T W J_i at pose max(f - 1, 0) and J_j^T W J_j at
+    # pose f: the first term shifted down one pose, rows 0 and 1 both at pose 0
+    hii = ji.transpose(1, 2) @ wji
+    shifted = torch.cat([hii[1:], torch.zeros_like(hii[:1])])
+    shifted = torch.cat([shifted[:1] + hii[:1], shifted[1:]])
+    d = shifted + jj.transpose(1, 2) @ wjj
     e = (ji.transpose(1, 2) @ wjj)[1:]
     jp = blocks.jac_j[k]  # first-pose anchor: jac_i is zero by construction
     wp = blocks.info_w[k] * blocks.valid[k].to(dtype)
@@ -255,9 +263,12 @@ def _chain_parts(blocks: FactorBlocks, k: int, damping, active):
     ci = blocks.jac_i[k + 1:].transpose(1, 2) * s[:, None, :]
     cj = blocks.jac_j[k + 1:].transpose(1, 2) * s[:, None, :]
     ar = torch.arange(f2, device=dev)
+    fi, fj = blocks.i[k + 1:], blocks.j[k + 1:]
+    # each factor column holds its two poses' blocks, summed where i == j:
+    # (pose, factor) pairs are unique, so these writes need no accumulation
     v4 = blocks.res.new_zeros(k, f2, 6, 6)
-    v4.index_put_((blocks.i[k + 1:], ar), ci, accumulate=True)
-    v4.index_put_((blocks.j[k + 1:], ar), cj, accumulate=True)
+    v4.index_put_((fi, ar), ci)
+    v4.index_put_((fj, ar), v4[fj, ar] + cj)
     return d, e, v4.permute(0, 2, 1, 3).reshape(k, 6, f2 * 6)
 
 

@@ -77,7 +77,9 @@ def _moments(xyz, mask, cand_xyz, cand_mask, xc, k, bisect):
         rmax = torch.where(valid, d2, 0.0).amax(dim=-1)
         hi = bisect(d2, valid, rmax, k)
         w = ((d2 <= (hi * hi)[..., None]) & valid).to(xc.dtype)
-        outs.append(torch.bmm(xc, w.transpose(1, 2)))
+        # one instance at a time: a batched matmul may split its work by the
+        # batch size and round an instance differently than alone
+        outs.append(torch.stack([xc[i] @ w[i].T for i in range(xc.shape[0])]))
     out = torch.cat(outs, dim=-1)
     return out * mask[:, None, :].to(out.dtype)
 

@@ -8,6 +8,18 @@ from __future__ import annotations
 import torch
 
 
+def small_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., M, K] @ b [..., K, P] for a small K, broadcast like `@`, as K
+    products accumulated in order (`torch.addcmul`). cuBLAS picks a batched
+    matmul's kernel by the batch count, so on the card `@` may round an
+    instance of a batch differently than the same instance alone; this
+    gives every instance the same bits whatever the batch."""
+    out = a[..., :, :1] * b[..., :1, :]
+    for i in range(1, a.shape[-1]):
+        out = torch.addcmul(out, a[..., :, i:i + 1], b[..., i:i + 1, :])
+    return out
+
+
 def inv3x3(m: torch.Tensor) -> torch.Tensor:
     """Closed-form adjugate inverse of [..., 3, 3] matrices."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
@@ -107,5 +119,5 @@ def solve_psd(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     jitter = 1e-7 * torch.clamp(trace / n, min=1e-12)
     hj = h + jitter[..., None, None] * eye
     if n == 3:
-        return (inv3x3(hj) @ b[..., None])[..., 0]
+        return small_matmul(inv3x3(hj), b[..., None])[..., 0]
     return cholesky_solve_unrolled(hj, b, n)

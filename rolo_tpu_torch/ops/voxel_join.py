@@ -64,12 +64,15 @@ def unpack_uniform(pack: torch.Tensor) -> torch.Tensor:
 def keyed_matmul_torch(values: torch.Tensor, keys_k: torch.Tensor,
                        keys_m: torch.Tensor) -> torch.Tensor:
     """Plain version: values [B, S, K] f32, keys_k [B, K], keys_m [B, M]
-    int32 -> [B, S, M] f32 as equality matmuls over chunks of M."""
+    int32 -> [B, S, M] f32 as equality matmuls over chunks of M, one
+    instance at a time (a batched matmul may split its work by the batch
+    size, and round an instance differently in a batch than alone)."""
     outs = []
     for m0 in range(0, keys_m.shape[-1], _CHUNK):
         km = keys_m[:, m0:m0 + _CHUNK]
         eq = (keys_k[:, :, None] == km[:, None, :]) & (km != INVALID_PACK)[:, None, :]
-        outs.append(torch.bmm(values, eq.to(values.dtype)))
+        eq = eq.to(values.dtype)
+        outs.append(torch.stack([values[i] @ eq[i] for i in range(values.shape[0])]))
     if not outs:
         return values.new_zeros(values.shape[0], values.shape[1], 0)
     return torch.cat(outs, dim=-1)

@@ -12,6 +12,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..ops.segment import segment_sum, segments
 from ..voxel.voxelmap import hash_coord
 from .cloud import PaddedCloud
 from .projection import RingImage
@@ -139,8 +140,8 @@ def voxel_downsample(cloud: PaddedCloud, leaf: float, capacity: int) -> PaddedCl
 
 def _voxel_downsample_impl(xyz, sel, leaf, capacity, ring_id):
     """Sort by the int32 hash (salted by the ring when given), segment
-    boundaries from the exact integer coordinates, segment means via
-    index_add_ (features.py:190-223)."""
+    boundaries from the exact integer coordinates, segment means from
+    fixed-order segment sums over the sorted ids (features.py:190-223)."""
     coord = torch.floor(xyz / leaf).to(torch.int32)
     key = torch.where(sel, hash_coord(coord, salt=ring_id), 0x7FFFFFFF)
     order = torch.argsort(key, stable=True)
@@ -152,8 +153,9 @@ def _voxel_downsample_impl(xyz, sel, leaf, capacity, ring_id):
     new_seg = torch.cat([torch.ones_like(same[:1]), ~same])
     seg_id = torch.cumsum(new_seg.to(torch.int64), 0) - 1
     seg_id = torch.where(sel_s, torch.clamp(seg_id, max=capacity), capacity)
-    sums = xyz.new_zeros(capacity + 1, 3).index_add_(0, seg_id, xyz_s)
-    cnts = xyz.new_zeros(capacity + 1).index_add_(0, seg_id, sel_s.to(xyz.dtype))[:capacity]
-    centroids = sums[:capacity] / torch.clamp(cnts, min=1.0)[:, None]
+    sums = segment_sum(torch.cat([xyz_s, sel_s.to(xyz.dtype)[:, None]], dim=1),
+                       segments(seg_id, capacity, is_sorted=True))
+    cnts = sums[:, 3]
+    centroids = sums[:, :3] / torch.clamp(cnts, min=1.0)[:, None]
     mask = cnts > 0
     return PaddedCloud(torch.where(mask[:, None], centroids, 0.0), mask)

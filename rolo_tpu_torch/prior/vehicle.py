@@ -3,11 +3,11 @@ Levenberg-Marquardt over (z, roll, pitch) at a fixed (x, y, yaw), with spring
 contact forces on the wheels below the ground surface and a gravity-alignment
 residual (the reference's VehicleModel / PoseSolver).
 
-The reference maps each wheel with `vmap`; here the wheels are one leading
-dimension W. Its `lax.while_loop` is a Python loop with one host check per
-iteration. A singular LM system gives non-finite steps in the reference
-(`jnp.linalg.solve`); `torch.linalg.solve_ex` neither raises nor syncs, and
-its `info` marks the same steps unsolvable.
+The reference maps each wheel with `vmap`; here the wheels are one
+dimension W, after an optional batch of B queries. Its `lax.while_loop` is a
+Python loop with one host check per iteration. A singular LM system gives
+non-finite steps in the reference (`jnp.linalg.solve`) and in the adjugate
+solve here, which neither raises nor syncs.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from ..config import PriorConfig
 from ..geometry import so3
+from ..ops.linalg import small_matmul
 from ..runtime.platform import default_device
 from .ground import GroundMap, average_height_at, contact_point, nearest_point_xy
 
@@ -51,63 +52,94 @@ def from_config(cfg: PriorConfig, device=None, dtype=torch.float32) -> VehicleMo
     )
 
 
+# Every product and sum below is elementwise in a fixed order (small_matmul),
+# and the ground queries run in tiles of a fixed row count: a batched matmul
+# picks its kernel, and a reduction its thread blocks, by the batch size, so
+# only then does an instance of a batch get the bits it gets alone.
+_QUERY_TILE = 16
+
+
+def _mv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return small_matmul(a, v[..., None])[..., 0]
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return small_matmul(a[..., None, :], b[..., :, None])[..., 0, 0]
+
+
+def _tiled(fn, xy: torch.Tensor) -> torch.Tensor:
+    """fn over the queries xy [..., 2], _QUERY_TILE rows per call (zero rows
+    pad the last tile): fn(tile [T, 2]) -> [T, ...]."""
+    flat = xy.reshape(-1, 2)
+    q = flat.shape[0]
+    flat = torch.cat([flat, flat.new_zeros((-q) % _QUERY_TILE, 2)])
+    out = torch.cat([fn(t) for t in flat.split(_QUERY_TILE)])[:q]
+    return out.reshape(*xy.shape[:-1], *out.shape[1:])
+
+
 def _rot_z(yaw: torch.Tensor) -> torch.Tensor:
     c, s = torch.cos(yaw), torch.sin(yaw)
     z, o = torch.zeros_like(c), torch.ones_like(c)
-    return torch.stack([torch.stack([c, -s, z]), torch.stack([s, c, z]), torch.stack([z, z, o])])
+    return torch.stack([torch.stack([c, -s, z], -1), torch.stack([s, c, z], -1),
+                        torch.stack([z, z, o], -1)], -2)
 
 
 def _enforce_fixed_yaw(r: torch.Tensor, yaw_fixed: torch.Tensor) -> torch.Tensor:
     """Strip the current yaw and apply the fixed one (vehicle.py:70-74)."""
-    return _rot_z(yaw_fixed) @ _rot_z(-torch.atan2(r[1, 0], r[0, 0])) @ r
+    strip = _rot_z(-torch.atan2(r[..., 1, 0], r[..., 0, 0]))
+    return small_matmul(small_matmul(_rot_z(yaw_fixed), strip), r)
 
 
 def _roll_pitch_from_fixed_yaw(r: torch.Tensor, yaw_fixed: torch.Tensor):
-    r_tilt = _rot_z(-yaw_fixed) @ r
-    return torch.atan2(r_tilt[2, 1], r_tilt[2, 2]), torch.atan2(-r_tilt[2, 0], r_tilt[0, 0])
+    r_tilt = small_matmul(_rot_z(-yaw_fixed), r)
+    return (torch.atan2(r_tilt[..., 2, 1], r_tilt[..., 2, 2]),
+            torch.atan2(-r_tilt[..., 2, 0], r_tilt[..., 0, 0]))
 
 
 def _residual_and_jacobian(gm: GroundMap, wheels_b: torch.Tensor, x, y, yaw, z, r, k_spring, g
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """residual [3] = wrench_map @ contact_forces + g (n_w . ez, 0, 0) and
-    its Jacobian [3, 3] in (z, roll, pitch) (vehicle.py:85-124), all wheels
-    at once."""
+    """residual [..., 3] = wrench_map @ contact_forces + g (n_w . ez, 0, 0)
+    and its Jacobian [..., 3, 3] in (z, roll, pitch) (vehicle.py:85-124),
+    all wheels of all instances at once."""
     del yaw
     dtype, dev = r.dtype, r.device
-    ez = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev)
     sx = so3.skew(torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=dev))
     sy = so3.skew(torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=dev))
-    t = torch.stack([x, y, z])
-    n_w = r @ ez  # vehicle normal in world
+    t = torch.stack([x, y, z], dim=-1)
+    n_w = r[..., :, 2]  # vehicle normal in world: r @ ez
     # wrench map rows: (1, r_y, -r_x) per wheel
     wmap = torch.stack([torch.ones_like(wheels_b[:, 0]), wheels_b[:, 1], -wheels_b[:, 0]])
 
-    rp = wheels_b @ r.T  # [W, 3]
-    pw = rp + t
-    a = pw - contact_point(gm, pw[:, :2])
-    d_i = a @ n_w
+    rp = small_matmul(wheels_b, r.transpose(-1, -2))  # [..., W, 3]
+    pw = rp + t[..., None, :]
+    a = pw - _tiled(lambda q: contact_point(gm, q), pw[..., :2])
+    n_b = n_w[..., None, :]
+    d_i = _dot(a, n_b)
     active = d_i < 0.0
     f = torch.where(active, k_spring * d_i, 0.0)
     act = active.to(dtype) * k_spring
-    dfz = act * n_w[2]
-    dfr = act * ((rp @ sx.T) @ n_w + a @ (sx @ n_w))
-    dfp = act * ((rp @ sy.T) @ n_w + a @ (sy @ n_w))
+    sxn, syn = _mv(sx, n_w), _mv(sy, n_w)
+    dfz = act * n_w[..., 2:3]
+    dfr = act * (_dot(small_matmul(rp, sx.T), n_b) + _dot(a, sxn[..., None, :]))
+    dfp = act * (_dot(small_matmul(rp, sy.T), n_b) + _dot(a, syn[..., None, :]))
 
-    zero = torch.zeros_like(n_w[2])
-    residual = wmap @ f + g * torch.stack([n_w[2], zero, zero])
-    jac = torch.stack([wmap @ dfz, wmap @ dfr, wmap @ dfp], dim=-1)
-    gravity = torch.stack([zero, g * torch.dot(ez, sx @ n_w), g * torch.dot(ez, sy @ n_w)])
-    jac = torch.cat([(jac[0] + gravity)[None], jac[1:]])
+    zero = torch.zeros_like(n_w[..., 2])
+    residual = _mv(wmap, f) + g * torch.stack([n_w[..., 2], zero, zero], dim=-1)
+    jac = torch.stack([_mv(wmap, dfz), _mv(wmap, dfr), _mv(wmap, dfp)], dim=-1)
+    gravity = torch.stack([zero, g * sxn[..., 2], g * syn[..., 2]], dim=-1)  # g ez . (s n_w)
+    jac = torch.cat([(jac[..., 0, :] + gravity)[..., None, :], jac[..., 1:, :]], dim=-2)
     return residual, jac
 
 
 class SolverResult(NamedTuple):
+    """Fields lead with the queries' batch shape (none for one query)."""
+
     z: torch.Tensor
     roll: torch.Tensor
     pitch: torch.Tensor
-    rot: torch.Tensor  # [3, 3] best rotation (fixed yaw)
+    rot: torch.Tensor  # [..., 3, 3] best rotation (fixed yaw)
     cost: torch.Tensor
-    wheel_signed_distances: torch.Tensor  # [W]
+    wheel_signed_distances: torch.Tensor  # [..., W]
     converged: torch.Tensor  # end_reason == "converged"
     success: torch.Tensor  # FailureDetection verdict
 
@@ -115,18 +147,32 @@ class SolverResult(NamedTuple):
 def _initial_z(gm: GroundMap, wheels_b, x, y, yaw, com_z, radius, min_neighbors):
     """Lowest averaged wheel ground height + com_z - 1.0, zero when no wheel
     query succeeds (vehicle.py:140-152)."""
-    w_xy = (wheels_b @ _rot_z(yaw).T)[:, :2] + torch.stack([x, y])
-    h, ok = average_height_at(gm, w_xy, radius, min_neighbors)
-    min_h = torch.min(torch.where(ok, h, float("inf")))
+    w_xy = small_matmul(wheels_b, _rot_z(yaw).transpose(-1, -2))[..., :2] + torch.stack([x, y], -1)[
+        ..., None, :]
+    h = _tiled(lambda q: average_height_at(gm, q, radius, min_neighbors)[0], w_xy)
+    min_h = torch.amin(torch.where(gm.ready, h, float("inf")), dim=-1)
     return torch.where(torch.isfinite(min_h), min_h + com_z - 1.0, 0.0)
 
 
 def _solve3(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a x = b for one 3x3 system: (x, solvable), x zero where unsolvable
-    (a singular factorization or a non-finite result), without a host sync."""
-    x, info = torch.linalg.solve_ex(a, b)
-    solvable = (info == 0) & torch.all(torch.isfinite(x))
-    return torch.where(solvable, x, 0.0), solvable
+    """a x = b for [..., 3, 3] systems by the adjugate: (x, solvable), x
+    zero where non-finite (a singular a gives 0 / 0), without a host sync.
+    The reference's LU solve also marks a singular system by non-finite
+    steps (vehicle.py:191-193)."""
+    adj = _adjugate3(a)
+    det = _dot(a[..., 0, :], adj[..., :, 0])
+    x = _mv(adj, b) / det[..., None]
+    solvable = torch.all(torch.isfinite(x), dim=-1)
+    return torch.where(solvable[..., None], x, 0.0), solvable
+
+
+def _adjugate3(m: torch.Tensor) -> torch.Tensor:
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    return torch.stack([torch.stack([e * i - f * h, c * h - b * i, b * f - c * e], -1),
+                        torch.stack([f * g - d * i, a * i - c * g, c * d - a * f], -1),
+                        torch.stack([d * h - e * g, b * g - a * h, a * e - b * d], -1)], -2)
 
 
 def solve_pose(gm: GroundMap, vehicle: VehicleModel, x, y, yaw,
@@ -134,56 +180,69 @@ def solve_pose(gm: GroundMap, vehicle: VehicleModel, x, y, yaw,
     """PoseSolver::Solve (vehicle.py:155-262): LM with accept/reject steps,
     lambda / 2 on accept and x 5 on reject (x 10 when unsolvable), tracking
     the best-cost iterate; converged on an accepted cost plateau or a step
-    below `tol_step`; then the FailureDetection gates."""
+    below `tol_step`; then the FailureDetection gates.
+
+    x, y, yaw are scalars, or [B] for B queries against the one map (the
+    reference's vmap, parallel/batch.py): every instance iterates until it
+    converges, under a mask, with one host check per iteration for the
+    whole batch. An instance gets the same bits in a batch as alone."""
     wheels = vehicle.wheel_points_body
     dtype, dev = wheels.dtype, wheels.device
 
-    def scalar(v):
+    def tensor(v):
         return torch.as_tensor(v, dtype=dtype, device=dev)
 
-    x, y, yaw = scalar(x), scalar(y), scalar(yaw)
-    k_spring, g = scalar(cfg.k_spring), scalar(cfg.gravity)
+    x, y, yaw = torch.broadcast_tensors(tensor(x), tensor(y), tensor(yaw))
+    k_spring, g = tensor(cfg.k_spring), tensor(cfg.gravity)
     eye = torch.eye(3, dtype=dtype, device=dev)
     ex, ey = eye[0], eye[1]
 
     r0 = _rot_z(yaw)
     z0 = _initial_z(gm, wheels, x, y, yaw, vehicle.com_z, cfg.ground_avg_radius,
                     cfg.ground_min_neighbors)
-    z, r, lam = z0, r0, scalar(cfg.lm_lambda)
-    last_cost = best_cost = scalar(float("inf"))
+    z, r = z0, r0
+    lam = torch.full_like(x, cfg.lm_lambda)
+    last_cost = best_cost = torch.full_like(x, float("inf"))
     best_z, best_r = z0, r0
-    conv = torch.tensor(False, device=dev)
+    conv = torch.zeros(x.shape, dtype=torch.bool, device=dev)
     for _ in range(cfg.max_iters):
+        run = ~conv
+        if not bool(run.any()):
+            break
         res, jac = _residual_and_jacobian(gm, wheels, x, y, yaw, z, r, k_spring, g)
-        c0 = torch.dot(res, res)
-        better = c0 < best_cost
+        c0 = _dot(res, res)
+        better = run & (c0 < best_cost)
         best_cost = torch.where(better, c0, best_cost)
         best_z = torch.where(better, z, best_z)
-        best_r = torch.where(better, r, best_r)
+        best_r = torch.where(better[..., None, None], r, best_r)
 
-        delta, solvable = _solve3(jac.T @ jac + lam * eye, -(jac.T @ res))
-        z_new = z + delta[0]
-        r_new = _enforce_fixed_yaw(so3.exp(ex * delta[1]) @ (so3.exp(ey * delta[2]) @ r), yaw)
+        jt = jac.transpose(-1, -2)
+        delta, solvable = _solve3(small_matmul(jt, jac) + lam[..., None, None] * eye, -_mv(jt, res))
+        z_new = z + delta[..., 0]
+        r_new = _enforce_fixed_yaw(small_matmul(so3.exp(ex * delta[..., 1:2]),
+                                       small_matmul(so3.exp(ey * delta[..., 2:3]), r)), yaw)
         res_new, _ = _residual_and_jacobian(gm, wheels, x, y, yaw, z_new, r_new, k_spring, g)
-        c1 = torch.dot(res_new, res_new)
+        c1 = _dot(res_new, res_new)
 
         accept = solvable & (c1 < c0)
-        conv = ((accept & (torch.abs(last_cost - c1) < cfg.tol_cost))
-                | (solvable & (torch.linalg.vector_norm(delta) < cfg.tol_step)))
-        z = torch.where(accept, z_new, z)
-        r = torch.where(accept, r_new, r)
-        lam = torch.where(~solvable, lam * 10.0,
-                          torch.where(accept, torch.clamp(lam / 2.0, min=1e-8), lam * 5.0))
-        last_cost = torch.where(accept, c1, c0)
-        if bool(conv):
-            break
+        conv_now = ((accept & (torch.abs(last_cost - c1) < cfg.tol_cost))
+                    | (solvable & (torch.sqrt(_dot(delta, delta)) < cfg.tol_step)))
+        step = run & accept
+        z = torch.where(step, z_new, z)
+        r = torch.where(step[..., None, None], r_new, r)
+        lam = torch.where(run, torch.where(~solvable, lam * 10.0, torch.where(
+            accept, torch.clamp(lam / 2.0, min=1e-8), lam * 5.0)), lam)
+        last_cost = torch.where(run, torch.where(accept, c1, c0), last_cost)
+        conv = conv | (run & conv_now)
 
     roll, pitch = _roll_pitch_from_fixed_yaw(best_r, yaw)
     # wheel signed distances at the solution
-    pw = wheels @ best_r.T + torch.stack([x, y, best_z])
-    dists = (pw - nearest_point_xy(gm, pw[:, :2])) @ (best_r @ eye[2])
+    pw = (small_matmul(wheels, best_r.transpose(-1, -2))
+          + torch.stack([x, y, best_z], -1)[..., None, :])
+    dists = _dot(pw - _tiled(lambda q: nearest_point_xy(gm, q), pw[..., :2]),
+                 best_r[..., None, :, 2])
     success = (conv & (best_z >= cfg.tolerance_z_min) & (best_z <= cfg.tolerance_z_max)
                & (torch.abs(roll) <= cfg.tolerance_roll) & (torch.abs(pitch) <= cfg.tolerance_pitch)
-               & torch.all(torch.abs(dists) <= cfg.tolerance_wheel_distance) & gm.ready)
+               & torch.all(torch.abs(dists) <= cfg.tolerance_wheel_distance, dim=-1) & gm.ready)
     return SolverResult(z=best_z, roll=roll, pitch=pitch, rot=best_r, cost=best_cost,
                         wheel_signed_distances=dists, converged=conv, success=success)

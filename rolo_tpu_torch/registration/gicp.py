@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..ops import sym3
+from ..ops.linalg import small_matmul
 from ..ops.voxel_join import pack_polar, pack_uniform
 from ..voxel.voxelmap import VoxelMap, lookup_join, polar_bins, uniform_bins
 
@@ -54,7 +55,7 @@ def make_context(src_xyz, src_mask, src_cov6, vmap, polar_res=None, resolution=1
 
 
 def _transform(ctx: GICPContext, rot, trans) -> torch.Tensor:
-    return rot @ ctx.src_t + trans[:, :, None]
+    return small_matmul(rot, ctx.src_t) + trans[:, :, None]
 
 
 def update_correspondences(ctx: GICPContext, rot, trans) -> Correspondences:
@@ -96,9 +97,22 @@ def _dot3(a, b):
     return torch.sum(a * b, dim=-2)
 
 
+_SUM_TILES = 32
+
+
 def _wsum(w, x):
-    """Per-instance sum of w * x over (offset, point): [B, O, N] -> [B]."""
-    return torch.sum(w * x, dim=(-2, -1))
+    """Per-instance sum of w * x over (offset, point): [B, O, N] -> [B].
+
+    Two fixed stages, the product's 32 contiguous tiles and then the tiles:
+    torch sizes a reduction's thread blocks (and, on the CPU, its thread
+    split) by its number of outputs, so one flat sum per instance would round
+    an instance differently in a batch of B than alone. Here every instance
+    is summed alike whatever B is."""
+    v = (w * x).reshape(w.shape[0], -1)
+    pad = (-v.shape[1]) % _SUM_TILES
+    if pad:
+        v = torch.nn.functional.pad(v, (0, pad))
+    return v.reshape(v.shape[0], _SUM_TILES, -1).sum(-1).sum(-1)
 
 
 def compute_error(ctx: GICPContext, corr: Correspondences, rot, trans) -> torch.Tensor:
@@ -124,6 +138,17 @@ def so3_linearize(ctx: GICPContext, corr: Correspondences, rot, trans):
     return err, h, bvec
 
 
+def se3_linearize(ctx: GICPContext, corr: Correspondences, rot, trans):
+    """(error [B], H [B, 6, 6], b [B, 6]) for the full SE(3) step
+    (gicp.py:182-193): tangent order [omega, rho], J = [skew(R p + t) | -I]."""
+    p = _transform(ctx, rot, trans)
+    e = corr.mean_b - p[:, None]
+    me = sym3.matvec(corr.maha, e)
+    err = _wsum(corr.weight, _dot3(e, me))
+    h, b = _se3_hb(corr.weight, corr.maha, p, me)
+    return err, h, b
+
+
 def _se3_hb(w, maha, p, me):
     """[skew(p) | -I] Hessian [B, 6, 6] and gradient [B, 6] (gicp.py:196-218)."""
     cols = _skew_cols(p)
@@ -140,23 +165,35 @@ def _se3_hb(w, maha, p, me):
     return h, torch.stack(b_r + b_t, -1)
 
 
-def _ct_terms(ctx, corr, t, init_guess, last_t0, interval_tn, interval_tn_1, ct_lambda):
+def ct_n_corr(corr: Correspondences) -> torch.Tensor:
+    """[B] count of live correspondences (weight > 0), as the CT weight's
+    denominator counts them before its floor of 1."""
+    return (corr.weight > 0).sum(dim=(-2, -1))
+
+
+def _ct_terms(ctx, corr, t, init_guess, last_t0, interval_tn, interval_tn_1, ct_lambda,
+              n_corr_override):
     q = ctx.src_t + t[:, :, None]
     e = corr.mean_b - q[:, None]
     ct = (init_guess + t) / interval_tn[:, None] - last_t0 / interval_tn_1[:, None]  # [B, 3]
-    n_corr = torch.clamp((corr.weight > 0).sum(dim=(-2, -1)).to(t.dtype), min=1.0)
+    if n_corr_override is None:
+        n_corr = torch.clamp(ct_n_corr(corr).to(t.dtype), min=1.0)
+    else:  # the global count when the point axis is sharded (parallel/spmd.py)
+        n_corr = n_corr_override
     lam = ct_lambda / n_corr  # [B]
     ct_b = ct[:, None, :, None].expand_as(corr.mean_b)
     return q, e, ct_b, lam
 
 
 def ct_linearize(ctx: GICPContext, corr: Correspondences, t, init_guess, last_t0,
-                 interval_tn, interval_tn_1, ct_lambda: float):
+                 interval_tn, interval_tn_1, ct_lambda: float,
+                 n_corr_override: Optional[torch.Tensor] = None):
     """Continuous-time translation linearization with the corrected
     velocity-continuity sign (gicp.py:221-289): error [B], H [B, 6, 6],
-    b [B, 6]. interval_* are [B]."""
+    b [B, 6]. interval_* are [B]. `n_corr_override` [B] replaces the local
+    correspondence count in the CT weight lambda / N_corr."""
     q, e, ct_b, lam = _ct_terms(ctx, corr, t, init_guess, last_t0, interval_tn,
-                                interval_tn_1, ct_lambda)
+                                interval_tn_1, ct_lambda, n_corr_override)
     w = corr.weight
     me = sym3.matvec(corr.maha, e)
     mct = sym3.matvec(corr.maha, ct_b)
@@ -174,9 +211,10 @@ def ct_linearize(ctx: GICPContext, corr: Correspondences, t, init_guess, last_t0
 
 
 def ct_error(ctx: GICPContext, corr: Correspondences, t, init_guess, last_t0, interval_tn,
-             interval_tn_1, ct_lambda: float) -> torch.Tensor:
+             interval_tn_1, ct_lambda: float,
+             n_corr_override: Optional[torch.Tensor] = None) -> torch.Tensor:
     """compute_t_error with the corrected sign (gicp.py:292-316) -> [B]."""
     _, e, ct_b, lam = _ct_terms(ctx, corr, t, init_guess, last_t0, interval_tn, interval_tn_1,
-                                ct_lambda)
+                                ct_lambda, n_corr_override)
     return _wsum(corr.weight, sym3.quad(corr.maha, e)) + lam * _wsum(
         corr.weight, sym3.quad(corr.maha, ct_b))

@@ -1,6 +1,6 @@
 """Levenberg-Marquardt solvers for rot-GICP, torch port of
-`rolo_tpu/registration/lm.py` (rotation-only SO(3) LM and the
-continuous-time translation LM with rebinding).
+`rolo_tpu/registration/lm.py`: rotation-only SO(3) LM, full SE(3) LM and
+Gauss-Newton, and the continuous-time translation LM with rebinding.
 
 The reference runs nested `lax.while_loop`s, one per instance under vmap.
 Here each loop is a Python loop up to its static cap over a batch of B
@@ -18,7 +18,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..geometry import se3, so3
-from ..ops.linalg import solve_psd
+from ..ops.linalg import small_matmul, solve_psd
 from . import gicp
 from .gicp import Correspondences, GICPContext
 
@@ -94,14 +94,13 @@ def _lm_inner(h, b, y0, lam, state: Tuple[torch.Tensor, ...], delta0: torch.Tens
     return state, lam, done, delta
 
 
-def lm_register_rotation(ctx: GICPContext, rot0, trans0, max_outer: int = MAX_OUTER,
-                         max_inner: int = MAX_INNER, rot_eps: float = ROTATION_EPS,
-                         trans_eps: float = TRANSFORM_EPS,
-                         init_lambda_factor: float = INIT_LAMBDA_FACTOR,
-                         active: Optional[torch.Tensor] = None) -> LMResult:
-    """SO(3) LM over the rot-GICP objective, rebinding correspondences at
-    every outer linearization (lm.py:93-145). rot0 [B, 3, 3], trans0 [B, 3];
-    instances with active=False do not iterate and return their start."""
+def _lm_register(bind: Callable, linearize: Callable, error: Callable, retract: Callable,
+                 small: Callable, delta0, rot0, trans0, dof: int, max_outer: int, max_inner: int,
+                 init_lambda_factor: float, active: Optional[torch.Tensor]) -> LMResult:
+    """The shared outer LM loop over (rot, trans) (lm.py:115-145, :164-194):
+    bind correspondences, linearize (error, H [B, dof, dof], b [B, dof]),
+    lambda trials, convergence on the accepted step's delta. rot0 [B, 3, 3],
+    trans0 [B, 3]; instances with active=False do not iterate."""
     bsz = rot0.shape[0]
     dev, dt = rot0.device, rot0.dtype
     running0 = torch.ones(bsz, dtype=torch.bool, device=dev) if active is None else active
@@ -109,34 +108,29 @@ def lm_register_rotation(ctx: GICPContext, rot0, trans0, max_outer: int = MAX_OU
     lam = torch.full((bsz,), -1.0, dtype=dt, device=dev)
     conv = torch.zeros(bsz, dtype=torch.bool, device=dev)
     failed = torch.zeros_like(conv)
-    h_out = torch.eye(3, dtype=dt, device=dev).expand(bsz, 3, 3)
+    h_out = torch.eye(dof, dtype=dt, device=dev).expand(bsz, dof, dof)
     err = torch.zeros(bsz, dtype=dt, device=dev)
     iters = torch.zeros(bsz, dtype=torch.int32, device=dev)
-    eye3 = torch.eye(3, dtype=dt, device=dev).expand(bsz, 3, 3)
     for _ in range(max_outer):
         running = running0 & ~conv & ~failed
         if not bool(running.any()):
             break
-        corr = gicp.update_correspondences(ctx, rot, trans)
-        y0, h, b = gicp.so3_linearize(ctx, corr, rot, trans)
+        corr = bind(rot, trans)
+        y0, h, b = linearize(corr, rot, trans)
         diag_max = torch.amax(torch.abs(torch.diagonal(h, dim1=-2, dim2=-1)), dim=-1)
         lam_i = torch.where(lam < 0, init_lambda_factor * diag_max, lam)
         cur_rot, cur_trans = rot, trans
 
         def try_step(d):
-            delta_rot = so3.exp(d)
-            cand_rot = delta_rot @ cur_rot
-            cand_trans = (delta_rot @ cur_trans[..., None])[..., 0]
-            yi = gicp.compute_error(ctx, corr, cand_rot, cand_trans)
-            return (cand_rot, cand_trans), delta_rot, yi
+            cand_rot, cand_trans, delta = retract(d, cur_rot, cur_trans)
+            return (cand_rot, cand_trans), delta, error(corr, cand_rot, cand_trans)
 
         (n_rot, n_trans), n_lam, done, delta = _lm_inner(
-            h, b, y0, lam_i, (rot, trans), eye3, try_step,
-            lambda dr: _rot_small(dr, rot_eps), max_inner)
+            h, b, y0, lam_i, (rot, trans), delta0, try_step, small, max_inner)
         rot = select(running, n_rot, rot)
         trans = select(running, n_trans, trans)
         lam = torch.where(running, n_lam, lam)
-        conv = torch.where(running, done & _rot_small(delta, rot_eps), conv)
+        conv = torch.where(running, done & small(delta), conv)
         failed = torch.where(running, ~done, failed)
         h_out = select(running, h, h_out)
         err = torch.where(running, y0, err)
@@ -144,14 +138,114 @@ def lm_register_rotation(ctx: GICPContext, rot0, trans0, max_outer: int = MAX_OU
     return LMResult(rot, trans, h_out, err, iters, conv, failed)
 
 
+def _so3_retract(d, rot, trans):
+    """Left-multiply the rotation step onto (rot, trans); delta = Exp(d)."""
+    delta_rot = so3.exp(d)
+    return (small_matmul(delta_rot, rot), small_matmul(delta_rot, trans[..., None])[..., 0],
+            delta_rot)
+
+
+def _se3_retract(d, rot, trans):
+    """Left-multiply the SE(3) step; delta = (its rot, its trans)."""
+    step = se3.exp(d)
+    return (small_matmul(step.rot, rot),
+            small_matmul(step.rot, trans[..., None])[..., 0] + step.trans, (step.rot, step.trans))
+
+
+def _se3_small(rot_eps: float, trans_eps: float) -> Callable:
+    def small(delta):
+        return _rot_small(delta[0], rot_eps) & _trans_small(delta[1], trans_eps)
+    return small
+
+
+def _se3_delta0(rot0):
+    return (torch.eye(3, dtype=rot0.dtype, device=rot0.device).expand_as(rot0),
+            torch.zeros(rot0.shape[:-1], dtype=rot0.dtype, device=rot0.device))
+
+
+def lm_register_rotation(ctx: GICPContext, rot0, trans0, max_outer: int = MAX_OUTER,
+                         max_inner: int = MAX_INNER, rot_eps: float = ROTATION_EPS,
+                         trans_eps: float = TRANSFORM_EPS,
+                         init_lambda_factor: float = INIT_LAMBDA_FACTOR,
+                         active: Optional[torch.Tensor] = None, linearize_fn=None,
+                         error_fn=None) -> LMResult:
+    """SO(3) LM over the rot-GICP objective, rebinding correspondences at
+    every outer linearization (lm.py:93-145). rot0 [B, 3, 3], trans0 [B, 3];
+    instances with active=False do not iterate and return their start.
+
+    linearize_fn(ctx, corr, rot, trans) -> (error, H, b) and error_fn(ctx,
+    corr, rot, trans) -> error replace gicp.so3_linearize / compute_error:
+    the point-sharded path (parallel/spmd.py) wraps them in all-reduces, so
+    every rank takes the same branches."""
+    linearize = linearize_fn if linearize_fn is not None else gicp.so3_linearize
+    error = error_fn if error_fn is not None else gicp.compute_error
+    eye3 = torch.eye(3, dtype=rot0.dtype, device=rot0.device).expand(rot0.shape[0], 3, 3)
+    return _lm_register(
+        lambda rot, trans: gicp.update_correspondences(ctx, rot, trans),
+        lambda corr, rot, trans: linearize(ctx, corr, rot, trans),
+        lambda corr, rot, trans: error(ctx, corr, rot, trans),
+        _so3_retract, lambda dr: _rot_small(dr, rot_eps), eye3, rot0, trans0, 3, max_outer,
+        max_inner, init_lambda_factor, active)
+
+
+def lm_register_se3(ctx: GICPContext, rot0, trans0, max_outer: int = MAX_OUTER,
+                    max_inner: int = MAX_INNER, rot_eps: float = ROTATION_EPS,
+                    trans_eps: float = TRANSFORM_EPS,
+                    init_lambda_factor: float = INIT_LAMBDA_FACTOR,
+                    active: Optional[torch.Tensor] = None) -> LMResult:
+    """Full SE(3) LM (lm.py:148-194): converged when both the rotation and
+    the translation of the accepted step are small."""
+    return _lm_register(
+        lambda rot, trans: gicp.update_correspondences(ctx, rot, trans),
+        lambda corr, rot, trans: gicp.se3_linearize(ctx, corr, rot, trans),
+        lambda corr, rot, trans: gicp.compute_error(ctx, corr, rot, trans),
+        _se3_retract, _se3_small(rot_eps, trans_eps), _se3_delta0(rot0), rot0, trans0, 6,
+        max_outer, max_inner, init_lambda_factor, active)
+
+
+def gn_register_se3(ctx: GICPContext, rot0, trans0, max_outer: int = MAX_OUTER,
+                    rot_eps: float = ROTATION_EPS, trans_eps: float = TRANSFORM_EPS,
+                    active: Optional[torch.Tensor] = None) -> LMResult:
+    """Plain Gauss-Newton SE(3) registration (lm.py:197-233): solve
+    H d = -b and always accept; converged on a small step."""
+    bsz = rot0.shape[0]
+    dev, dt = rot0.device, rot0.dtype
+    running0 = torch.ones(bsz, dtype=torch.bool, device=dev) if active is None else active
+    small = _se3_small(rot_eps, trans_eps)
+    rot, trans = rot0, trans0
+    conv = torch.zeros(bsz, dtype=torch.bool, device=dev)
+    h_out = torch.eye(6, dtype=dt, device=dev).expand(bsz, 6, 6)
+    err = torch.zeros(bsz, dtype=dt, device=dev)
+    iters = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    for _ in range(max_outer):
+        running = running0 & ~conv
+        if not bool(running.any()):
+            break
+        corr = gicp.update_correspondences(ctx, rot, trans)
+        y0, h, b = gicp.se3_linearize(ctx, corr, rot, trans)
+        n_rot, n_trans, delta = _se3_retract(solve_psd(h, -b), rot, trans)
+        rot = select(running, n_rot, rot)
+        trans = select(running, n_trans, trans)
+        conv = torch.where(running, small(delta), conv)
+        h_out = select(running, h, h_out)
+        err = torch.where(running, y0, err)
+        iters = iters + running.to(torch.int32)
+    return LMResult(rot, trans, h_out, err, iters, conv, torch.zeros_like(conv))
+
+
 def lm_translation(ctx: GICPContext, corr: Correspondences, t0, init_guess, last_t0,
                    interval_tn, interval_tn_1, ct_lambda: float, max_outer: int = MAX_OUTER,
                    max_inner: int = MAX_INNER, trans_eps: float = TRANSFORM_EPS,
                    init_lambda_factor: float = INIT_LAMBDA_FACTOR,
-                   active: Optional[torch.Tensor] = None) -> CTResult:
+                   active: Optional[torch.Tensor] = None, ct_linearize_fn=None,
+                   ct_error_fn=None) -> CTResult:
     """Continuous-time translation NLS on fixed correspondences
     (lm.py:245-306): a 6-dof system of which only the translational part of
-    se3_exp(d) is retracted. t0/init_guess/last_t0 [B, 3], intervals [B]."""
+    se3_exp(d) is retracted. t0/init_guess/last_t0 [B, 3], intervals [B].
+    ct_linearize_fn / ct_error_fn replace gicp.ct_linearize / ct_error, with
+    their arguments (the all-reducing wrappers of parallel/spmd.py)."""
+    ct_lin = ct_linearize_fn if ct_linearize_fn is not None else gicp.ct_linearize
+    ct_err = ct_error_fn if ct_error_fn is not None else gicp.ct_error
     bsz = t0.shape[0]
     dev, dt = t0.device, t0.dtype
     running0 = torch.ones(bsz, dtype=torch.bool, device=dev) if active is None else active
@@ -168,7 +262,7 @@ def lm_translation(ctx: GICPContext, corr: Correspondences, t0, init_guess, last
         running = running0 & ~conv & ~failed
         if not bool(running.any()):
             break
-        y0, h, b = gicp.ct_linearize(ctx, corr, t, *args)
+        y0, h, b = ct_lin(ctx, corr, t, *args)
         diag_max = torch.amax(torch.abs(torch.diagonal(h, dim1=-2, dim2=-1)), dim=-1)
         lam_i = torch.where(lam < 0, init_lambda_factor * diag_max, lam)
         cur_t = t
@@ -176,7 +270,7 @@ def lm_translation(ctx: GICPContext, corr: Correspondences, t0, init_guess, last
         def try_step(d):
             delta_t = se3.exp(d).trans
             cand = cur_t + delta_t
-            return (cand,), delta_t, gicp.ct_error(ctx, corr, cand, *args)
+            return (cand,), delta_t, ct_err(ctx, corr, cand, *args)
 
         (n_t,), n_lam, done, delta = _lm_inner(
             h, b, y0, lam_i, (t,), zero3, try_step,
@@ -196,7 +290,8 @@ def lm_translation_rebind(ctx: GICPContext, rot, t0, init_guess, last_t0, interv
                           max_outer: int = MAX_OUTER, max_inner: int = MAX_INNER,
                           trans_eps: float = TRANSFORM_EPS,
                           init_lambda_factor: float = INIT_LAMBDA_FACTOR,
-                          active: Optional[torch.Tensor] = None) -> CTResult:
+                          active: Optional[torch.Tensor] = None, ct_linearize_fn=None,
+                          ct_error_fn=None) -> CTResult:
     """CT translation with correspondence rebinding between rounds
     (lm.py:309-363): re-bind at the current translation and re-solve, up to
     `rebind_rounds` times, each instance stopping once a round no longer
@@ -209,7 +304,8 @@ def lm_translation_rebind(ctx: GICPContext, rot, t0, init_guess, last_t0, interv
         return lm_translation(ctx, corr, t, init_guess, last_t0, interval_tn, interval_tn_1,
                               ct_lambda, max_outer=max_outer, max_inner=max_inner,
                               trans_eps=trans_eps, init_lambda_factor=init_lambda_factor,
-                              active=act)
+                              active=act, ct_linearize_fn=ct_linearize_fn,
+                              ct_error_fn=ct_error_fn)
 
     res = do_round(t0, running0)
     moved = running0

@@ -129,14 +129,25 @@ def cov6_from_moments(mom: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def estimate_cov6(xyz: torch.Tensor, mask: torch.Tensor, k: int = 20, method: str = PLANE,
-                  selector: str = "moment") -> torch.Tensor:
+                  selector: str = "moment", cand_xyz: torch.Tensor = None,
+                  cand_mask: torch.Tensor = None) -> torch.Tensor:
     """Per-point regularized covariances, SoA: xyz [B, N, 3], mask [B, N]
-    -> [B, 6, N] sym3 planes (identity at masked points)."""
+    -> [B, 6, N] sym3 planes (identity at masked points).
+
+    cand_xyz [B, M, 3] / cand_mask [B, M]: the neighbour candidates when they
+    are not the queries themselves (knn.py:192-204): the point-sharded path
+    queries its shard against the gathered cloud (parallel/spmd.py). The
+    queries must be among the candidates for each point to be its own
+    nearest neighbour, as the reference requires."""
     xyz = torch.where(mask[..., None], xyz, 0.0)
+    if cand_xyz is None:
+        cand_xyz, cand_mask = xyz, mask
+    else:
+        cand_xyz = torch.where(cand_mask[..., None], cand_xyz, 0.0)
     if selector == "exact":
-        idx = knn_indices(xyz, mask, xyz, mask, k, _CHUNK, form="elementwise")  # [B, N, k]
+        idx = knn_indices(xyz, mask, cand_xyz, cand_mask, k, _CHUNK, form="elementwise")
         b, n, _ = idx.shape
-        neigh = torch.gather(xyz, 1, idx.reshape(b, n * k, 1).expand(b, n * k, 3))
+        neigh = torch.gather(cand_xyz, 1, idx.reshape(b, n * k, 1).expand(b, n * k, 3))
         neigh = neigh.reshape(b, n, k, 3)
         centered = neigh - neigh.mean(dim=2, keepdim=True)
         cx, cy, cz = centered[..., 0], centered[..., 1], centered[..., 2]
@@ -149,8 +160,10 @@ def estimate_cov6(xyz: torch.Tensor, mask: torch.Tensor, k: int = 20, method: st
             dim=1,
         )
     elif selector == "moment":
-        mom = knn_moments(xyz.contiguous(), mask.contiguous(), xyz.contiguous(),
-                          mask.contiguous(), moment_table(xyz, mask).contiguous(), k)
+        # the same tensor for queries and candidates when they coincide: the
+        # K2 wrapper then reuses the candidates' spatial order for the queries
+        mom = knn_moments(xyz.contiguous(), mask.contiguous(), cand_xyz.contiguous(),
+                          cand_mask.contiguous(), moment_table(cand_xyz, cand_mask).contiguous(), k)
         cov6 = cov6_from_moments(mom, k)
     else:
         raise ValueError(f"unknown selector {selector!r}")

@@ -113,7 +113,9 @@ def build_voxel_map(xyz: torch.Tensor, cov6: torch.Tensor, mask: torch.Tensor, c
         pack = pack_uniform(uniform_coord(xyz, resolution))
     pack = torch.where(mask, pack, INVALID_PACK).to(torch.int32)
 
-    sp, order = torch.sort(pack, dim=-1)  # the build's one sort
+    # the build's one sort; stable, so each run's points keep one order (and
+    # so their sum one rounding) whatever the batch
+    sp, order = torch.sort(pack, dim=-1, stable=True)
     is_valid = sp != INVALID_PACK
     first = torch.ones_like(sp[:, :1], dtype=torch.bool)
     new_seg = is_valid & torch.cat([first, sp[:, 1:] != sp[:, :-1]], dim=1)

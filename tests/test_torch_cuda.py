@@ -1,6 +1,7 @@
 """On-card checks of the port's CUDA kernels against their plain torch
-versions, and of the CUDA registration, mapping, loop-closure and prior
-paths against the same calls on CPU tensors.
+versions, of the CUDA registration, mapping, loop-closure and prior paths
+against the same calls on CPU tensors, of the same bits from two runs under
+torch's default algorithms, and of the parallel slice on a one-rank group.
 
 These need an NVIDIA GPU with nvcc; elsewhere they skip. They import no JAX,
 so on the GPU machine (which has none) run them without the suite's
@@ -70,8 +71,11 @@ def _lidar(rng, b, n):
 
 
 @pytest.mark.parametrize("b,q,n,k", [(2, 300, 300, 8), (16, 8192, 8192, 20),
-                                     (1, 8192, 8192, 20)])
+                                     (1, 8192, 8192, 20), (16, 4096, 8192, 20),
+                                     (1, 4096, 8192, 20)])
 def test_knn_moments_matches_plain(cuda, b, q, n, k):
+    """Q < N: the queries are the first Q candidates in a tensor of their
+    own, as the point-split path's shard against the gathered cloud."""
     rng = np.random.default_rng(1)
     cand = _lidar(rng, b, n)
     cmask = torch.as_tensor(rng.random((b, n)) < 0.9)
@@ -290,7 +294,7 @@ def test_backend_step_cuda_matches_plain(cuda):
     same run on CPU tensors, where the kernel wrappers take their plain
     versions, from identical simulated scans at the fixture's capacities.
     Tolerances as tests/test_torch_backend.py states them between packages:
-    the f32 plane fits and atomic scatter sums differ in the last bits."""
+    the f32 plane fits and the sums round differently on the two devices."""
     from torch_parity import small_config, small_sim_kwargs
 
     from rolo_tpu_torch.sim.dataset import SimConfig, generate_sequence
@@ -465,3 +469,166 @@ def test_prior_cycle_cuda_matches_cpu(cuda):
     assert torch.allclose(g.noise_var[0].cpu(), w.noise_var[0], rtol=FITNESS_REL)
     n = int(solved.db.count)
     assert float((solved.db.trans[:n].cpu() - wsolved.db.trans[:n]).abs().max()) < ICP_TRANS_M
+
+
+# The sixth slice on the card: sums in a fixed order (the same bits on every
+# run under torch's default algorithms), batches that give each instance its
+# own bits, SE(3) registration and the point-split path.
+
+
+def test_voxel_downsample_rings_is_deterministic(cuda):
+    from rolo_tpu_torch.pointcloud.features import voxel_downsample_rings
+
+    rng = np.random.default_rng(11)
+    xyz = torch.tensor(lidar_cloud(rng, 64 * 1024, spread=30.0, lo=-80.0, hi=80.0)).reshape(
+        64, 1024, 3).to(cuda)
+    sel = torch.tensor(rng.random((64, 1024)) < 0.8).to(cuda)
+    first = voxel_downsample_rings(xyz.clone(), sel.clone(), 0.4, 8192)
+    second = voxel_downsample_rings(xyz.clone(), sel.clone(), 0.4, 8192)
+    assert torch.equal(first.xyz, second.xyz) and torch.equal(first.mask, second.mask)
+    want = voxel_downsample_rings(xyz.cpu(), sel.cpu(), 0.4, 8192)
+    assert torch.equal(first.mask.cpu(), want.mask)
+    assert float((first.xyz.cpu() - want.xyz).abs().max()) < 1e-4
+
+
+def _looped_state(device):
+    """The out-and-back state with its loop (13, 0) closed."""
+    from torch_parity import loop_test_config, port_out_and_back
+
+    from rolo_tpu_torch.mapping.backend import loop_closure_step
+
+    cfg = loop_test_config("all")
+    state, closed = loop_closure_step(port_out_and_back(cfg, device), cfg)
+    assert bool(closed)
+    return state
+
+
+@pytest.mark.parametrize("method", ["bcr", "dense", "pcg"])
+def test_solve_pose_graph_is_deterministic(cuda, method):
+    from rolo_tpu_torch.graph.solver import solve_pose_graph
+    from rolo_tpu_torch.mapping.backend import backend_state_from_numpy, backend_state_to_numpy
+
+    arrays = backend_state_to_numpy(_looped_state(cuda))
+    sols = []
+    for _ in range(2):
+        st = backend_state_from_numpy(arrays, cuda)
+        sols.append(solve_pose_graph(st.graph, st.db.rot, st.db.trans, st.db.count,
+                                     method=method))
+    assert all(torch.equal(a, b) for a, b in zip(*sols))
+    assert int(sols[0].iterations) >= 1
+
+
+def test_backend_step_is_deterministic(cuda):
+    """One mapping step twice from copies of one state: the same bits."""
+    from torch_parity import small_config, small_sim_kwargs
+
+    from rolo_tpu_torch.bench import featurize_parts
+    from rolo_tpu_torch.mapping.backend import (backend_state_from_numpy, backend_state_to_numpy,
+                                                backend_step, init_backend)
+    from rolo_tpu_torch.pointcloud.cloud import PaddedCloud
+    from rolo_tpu_torch.sim.dataset import SimConfig, generate_sequence
+
+    cfg = small_config()
+    frames = list(generate_sequence(SimConfig(**small_sim_kwargs(4)), cuda))
+    state = init_backend(cfg, cuda)
+    parts = [featurize_parts(f, cfg) for f in frames]
+    eye = torch.eye(3, device=cuda)
+    for i, (fc, img) in enumerate(parts[:3]):
+        raw = PaddedCloud(img.xyz.reshape(-1, 3), img.mask.reshape(-1))
+        state, _ = backend_step(state, fc.corners, fc.surfaces, raw, eye, frames[i].gt_trans,
+                                True, 0.5 * i, cfg)
+    arrays = backend_state_to_numpy(state)
+    fc, img = parts[3]
+    raw = PaddedCloud(img.xyz.reshape(-1, 3), img.mask.reshape(-1))
+    runs = [backend_step(backend_state_from_numpy(arrays, cuda), fc.corners, fc.surfaces, raw,
+                         eye, frames[3].gt_trans, True, 1.5, cfg) for _ in range(2)]
+    (st_a, out_a), (st_b, out_b) = runs
+    assert all(torch.equal(a, b) for a, b in zip(out_a, out_b))
+    flat_a, flat_b = backend_state_to_numpy(st_a), backend_state_to_numpy(st_b)
+    assert all(np.array_equal(flat_a[key], flat_b[key]) for key in flat_a)
+
+
+def _se3_scene():
+    rng = np.random.default_rng(5)
+    planes = []
+    for axis, off in [(0, 8.0), (0, -9.0), (1, 10.0), (1, -7.0), (2, -1.5)]:
+        p = rng.uniform(-8, 8, (400, 3))
+        p[:, axis] = off + rng.normal(0, 0.01, 400)
+        planes.append(p)
+    world = np.concatenate(planes).astype(np.float32)
+    c, s = np.cos(0.03), np.sin(0.03)
+    rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    moved = world @ rot.T + np.float32([0.2, -0.1, 0.05])
+    return torch.tensor(world)[None], torch.tensor(moved)[None], torch.ones(1, len(world),
+                                                                          dtype=torch.bool)
+
+
+def test_register_se3_cuda_matches_cpu(cuda):
+    from rolo_tpu_torch.registration.rotgicp import register_se3
+
+    src, tgt, mask = _se3_scene()
+    args = (torch.eye(3)[None], torch.zeros(1, 3))
+    cfg = RegistrationConfig(voxel_type="uniform", voxel_resolution=1.0)
+    want = register_se3(src, mask, tgt, mask, *args, cfg, 4096, 20)
+    got = register_se3(*(t.to(cuda) for t in (src, mask, tgt, mask, *args)), cfg, 4096, 20)
+    assert torch.allclose(got.rot.cpu(), want.rot, atol=1e-4)
+    assert torch.allclose(got.trans.cpu(), want.trans, atol=1e-3)
+
+
+def test_batches_give_each_instance_its_bits_on_card(cuda):
+    """register_scan_pair at B=2 and the contact solver at B=8 against the
+    same instances alone, on the card."""
+    from rolo_tpu_torch.config import PriorConfig
+    from rolo_tpu_torch.prior.ground import GroundMap
+    from rolo_tpu_torch.prior.vehicle import from_config, solve_pose
+    from rolo_tpu_torch.sim.dataset import SimConfig, ground_map_points
+
+    src, tgt, mask = _se3_scene()
+    src2, tgt2 = torch.cat([src, tgt]).to(cuda), torch.cat([tgt, src]).to(cuda)
+    mask2 = torch.cat([mask, mask]).to(cuda)
+    z, dt = torch.zeros(2, 3, device=cuda), torch.full((2,), 0.1, device=cuda)
+    cfg = RegistrationConfig()
+    both = register_scan_pair(src2, mask2, tgt2, mask2, z, z, dt, dt, cfg, 4096, 20)
+    for i in range(2):
+        one = register_scan_pair(src2[i:i + 1], mask2[i:i + 1], tgt2[i:i + 1], mask2[i:i + 1],
+                                 z[:1], z[:1], dt[:1], dt[:1], cfg, 4096, 20)
+        assert all(torch.equal(a[0], b[i]) for a, b in zip(one, both))
+
+    pcfg = PriorConfig(tolerance_roll=0.5, tolerance_pitch=0.5)
+    pts = ground_map_points(SimConfig(period=20.0, roughness=1.2), cuda)
+    gm = GroundMap(pts, torch.ones(len(pts), dtype=torch.bool, device=cuda))
+    vm = from_config(pcfg, cuda)
+    xs = torch.linspace(-15.0, 15.0, 8, device=cuda)
+    ys, yaws = torch.linspace(-9.0, 9.0, 8, device=cuda), torch.linspace(-2.4, 2.4, 8, device=cuda)
+    batch = solve_pose(gm, vm, xs, ys, yaws, pcfg)
+    for i in range(8):
+        one = solve_pose(gm, vm, xs[i], ys[i], yaws[i], pcfg)
+        assert all(torch.equal(a, b[i]) for a, b in zip(one, batch))
+
+
+def test_spmd_one_rank_cuda_matches_cpu(cuda):
+    """register_scan_pair_spmd on a one-rank NCCL group against the same on
+    a gloo group over CPU tensors (2e-4 / 2e-3, tests/test_parallel.py's
+    tolerances), and against register_scan_pair on the card."""
+    import torch.distributed as dist
+
+    from rolo_tpu_torch.parallel.mesh import make_mesh
+    from rolo_tpu_torch.parallel.spmd import register_scan_pair_spmd
+
+    src, tgt, mask = (t[0] for t in _se3_scene())
+    z, dt = torch.zeros(3), torch.tensor(0.1)
+    cfg = RegistrationConfig()
+    mesh = make_mesh(axis_names=("point",), device_type="cuda")
+    try:
+        got = register_scan_pair_spmd(mesh, *(t.to(cuda) for t in (src, mask, tgt, mask, z, z,
+                                                                   dt, dt)), cfg, 4096, 20)
+        want = register_scan_pair_spmd(dist.new_group(backend="gloo"), src, mask, tgt, mask, z, z,
+                                       dt, dt, cfg, 4096, 20)
+        one = register_scan_pair(*(t[None].to(cuda) for t in (src, mask, tgt, mask, z, z, dt, dt)),
+                                 cfg, 4096, 20)
+    finally:
+        dist.destroy_process_group()
+    assert torch.allclose(got.rot.cpu(), want.rot, atol=2e-4)
+    assert torch.allclose(got.trans.cpu(), want.trans, atol=2e-3)
+    assert torch.allclose(got.rot, one.rot[0], atol=2e-4)
+    assert torch.allclose(got.trans, one.trans[0], atol=2e-3)

@@ -1,7 +1,8 @@
 """The port runs where JAX and PyYAML do not exist: importing every module of
 it, its own config and chip_smoke.py, and running CPU scan_steps,
-backend_steps, a loop-closure pass, a prior cycle, ESKF fusion, a graph solve
-and three SlamSystem scans with a checkpoint and a restore, must never import
+backend_steps, a loop-closure pass, a prior cycle, ESKF fusion, a graph solve,
+three SlamSystem scans with a checkpoint and a restore, and the one-rank dry
+run of graft_entry (batched and point-split registration), must never import
 jax or yaml nor execute a file of the JAX package. Its config copy reads the
 same values as the reference's, and its state constructors default to the
 card."""
@@ -41,6 +42,8 @@ import rolo_tpu_torch.runtime.slam, rolo_tpu_torch.runtime.dataset, rolo_tpu_tor
 import rolo_tpu_torch.runtime.metrics, rolo_tpu_torch.runtime.profiling
 import rolo_tpu_torch.runtime.bagwriter, rolo_tpu_torch.runtime.viz
 import rolo_tpu_torch.cpp.host, rolo_tpu_torch.__main__
+import rolo_tpu_torch.filter.manifold, rolo_tpu_torch.registration.experimental
+import rolo_tpu_torch.parallel, rolo_tpu_torch.graft_entry
 
 g = torch.Generator().manual_seed(0)
 n = 256
@@ -93,6 +96,10 @@ with tempfile.TemporaryDirectory() as tmp:
 assert torch.equal(again.odom_state.pose_trans, slam.odom_state.pose_trans)
 assert int(again.backend_state.db.count) == int(slam.backend_state.db.count) >= 1
 assert len(slam.times) == 3 and np.isfinite(slam.front_positions_np()).all()
+
+# the sixth slice: the dry run over a one-rank group (all three phases)
+from rolo_tpu_torch.graft_entry import dryrun_multichip
+dryrun_multichip(1, device="cpu")
 assert not any(m == "jax" or m.startswith(("jax.", "rolo_tpu.")) or m == "rolo_tpu"
                for m in sys.modules if sys.modules[m] is not None)
 # by file, too: a module of the JAX package loaded under another name
