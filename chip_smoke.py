@@ -64,9 +64,17 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      prior_solve_batch of 16 keyframe poses on phase 6's live ground map,
      each bit-equal to solve_pose; (g) dryrun_multichip(1); (h) a
      GenericEKF predict + update_iterated within 1e-5 of the CPU's.
+  9. batched offline mapping (`batch_mapping`): phase 5's frames as 16
+     sequences of 15 scans, the front-end through odometry_batch, one
+     batched backend_step a step at the 0.15 s cadence, batched dense and
+     bcr solves and a batched solve_graph_host, every step and solve
+     bit-equal to the sequences run one at a time; keyframe, accuracy and
+     solve gates; mapped scans/s and solves/s batched and looped, and
+     solve_graph_host's ms at buckets 256-2,048.
 Then one JSON line lists each kernel: its launches in phase 3's main-path
 run (and in phase 5's, "launches_mapping", and per lap scan; in phase
-6's, "launches_runtime"; in phase 8's, "launches_parallel"), and from phase
+6's, "launches_runtime"; in phase 8's, "launches_parallel"; in phase 9's,
+"launches_batch_mapping"), and from phase
 2 its worst max_abs_err and its
 ms / plain_ms / bound_ms summed over its cases (one call of each;
 library_ms only where every case has one; every case is also under
@@ -102,10 +110,12 @@ from rolo_tpu_torch.graft_entry import dryrun_multichip
 from rolo_tpu_torch.loop.closure import detect_loop_distance, kabsch_rotation
 from rolo_tpu_torch.loop.scancontext import detect_loop
 from rolo_tpu_torch.mapping import backend as backend_module
+from rolo_tpu_torch.graph.solver import solve_pose_graph
 from rolo_tpu_torch.mapping.backend import (backend_step, init_backend, loop_closure_step,
                                             solve_graph_host)
 from rolo_tpu_torch.ops import cuda_build
 from rolo_tpu_torch.ops.knn_moments import knn_moments, knn_moments_torch, morton_order
+from rolo_tpu_torch.ops.pytree import tree_index, tree_leaves
 from rolo_tpu_torch.ops.voxel_join import (INVALID_PACK, keyed_matmul, keyed_matmul_torch,
                                            pack_polar, pack_uniform)
 from rolo_tpu_torch.parallel import (odometry_batch, prior_solve_batch, register_scan_pair_spmd,
@@ -840,7 +850,9 @@ SPMD_ROT, SPMD_TRANS = 2e-4, 2e-3  # tests/test_parallel.py:239-244
 
 
 def _equal_fields(got, want) -> bool:
-    return all(torch.equal(a, b) for a, b in zip(got, want))
+    """Every leaf of two trees of tensors (tuples or lists at the top) bit-equal."""
+    got, want = tree_leaves(tuple(got)), tree_leaves(tuple(want))
+    return len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _pose_ekf():
@@ -1030,6 +1042,187 @@ def parallel_slice(cfg: RoloConfig, pairs, clouds, frames, ground, device):
     return launches
 
 
+N_BATCH_SEQ, SEQ_LEN = 16, 15  # phase 9: phase 5's frames as 16 sequences of 15 scans
+MIN_SEQ_KEYFRAMES = 5
+KF_GATE_M = 0.25  # tools/bench_batch_mapping.py:150
+SOLVE_MOVE_M, DENSE_BCR_M = 0.05, 1e-4  # __graft_entry__.py:249-250
+SOLVE_BUCKETS = (256, 512, 1024, 2048)
+
+
+def _stack_clouds(clouds):
+    return PaddedCloud(torch.stack([c.xyz for c in clouds]), torch.stack([c.mask for c in clouds]))
+
+
+def batch_mapping(cfg: RoloConfig, frames, device):
+    """Phase 9: offline batched mapping, `backend_step` over B sequences at
+    once at RoloConfig() capacities. `frames` are phase 5's scans, cut into
+    N_BATCH_SEQ sequences of SEQ_LEN consecutive scans; the front-end runs
+    for all of them through odometry_batch, backend_step at the 0.15 s
+    cadence as one batched call a step, then one batched solve_pose_graph
+    with "dense" and one with "bcr" over the first 64 keyframe slots (the
+    host solve's bucket), and one batched solve_graph_host. Gates, each
+    raising: (a) every step's states and outputs, and each solve, bit-equal
+    to the same sequences stepped and solved one at a time; (b) at least
+    MIN_SEQ_KEYFRAMES keyframes a sequence; (c) the mapped keyframes within
+    KF_GATE_M of the truth in each sequence's first-scan frame; (d) no
+    keyframe moved more than SOLVE_MOVE_M by the solve, "dense" and "bcr"
+    within DENSE_BCR_M; (e) both kernels launched (by the front-end). Then
+    solve_graph_host's ms at each of SOLVE_BUCKETS on one sequence's
+    state. Returns the kernels' launches over the phase."""
+    st, reg, lc = cfg.static, cfg.registration, cfg.loop
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    seqs = [frames[i * SEQ_LEN:(i + 1) * SEQ_LEN] for i in range(N_BATCH_SEQ)]
+    parts = [[bench.featurize_parts(f, cfg) for f in seq] for seq in seqs]
+    feats = [[concat_clouds(fc.corners, fc.surfaces, st.max_feature_points) for fc, _ in seq]
+             for seq in parts]
+    xyz = torch.stack([torch.stack([c.xyz for c in seq]) for seq in feats])
+    mask = torch.stack([torch.stack([c.mask for c in seq]) for seq in feats])
+    stamps = np.array([[f.stamp for f in seq] for seq in seqs])
+    intervals = np.concatenate([np.full((N_BATCH_SEQ, 1), cfg.sensor.scan_period),
+                                np.maximum(np.diff(stamps, axis=1), 1e-3)], axis=1)
+    times = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    sync()
+    keyed_matmul.launches = 0
+    knn_moments.launches = 0
+    t_phase = time.perf_counter()
+    front = timed("odometry_batch", lambda: odometry_batch(
+        xyz, mask, torch.tensor(intervals, dtype=torch.float32, device=device), reg,
+        st.max_voxels, reg.k_correspondences))
+    batch = init_backend(cfg, device, batch=N_BATCH_SEQ)
+    singles = [init_backend(cfg, device) for _ in range(N_BATCH_SEQ)]
+    kf_scans = [[] for _ in range(N_BATCH_SEQ)]
+    last, n_steps = -float("inf"), 0
+    for i in range(SEQ_LEN):  # the cadence of sequence 0 (every sequence steps with it)
+        if stamps[0, i] - last < cfg.mapping.mapping_process_interval:
+            continue
+        last, n_steps = stamps[0, i], n_steps + 1
+        corner = _stack_clouds([p[i][0].corners for p in parts])
+        surf = _stack_clouds([p[i][0].surfaces for p in parts])
+        raw = [PaddedCloud(p[i][1].xyz.reshape(-1, 3), p[i][1].mask.reshape(-1)) for p in parts]
+        sc_cloud = _stack_clouds(raw) if lc.sc_input_type == "scan_raw" else surf
+        stamp = torch.tensor(stamps[:, i], dtype=torch.float32, device=device)
+        last_inputs = (corner, surf, sc_cloud, front.pose_rot[:, i], front.pose_trans[:, i],
+                       True, stamp)
+        batch, out = timed("backend_step batched", lambda: backend_step(batch, *last_inputs, cfg))
+        for b in range(N_BATCH_SEQ):
+            def one():
+                return backend_step(singles[b], PaddedCloud(corner.xyz[b], corner.mask[b]),
+                                    PaddedCloud(surf.xyz[b], surf.mask[b]),
+                                    PaddedCloud(sc_cloud.xyz[b], sc_cloud.mask[b]),
+                                    front.pose_rot[b, i], front.pose_trans[b, i], True,
+                                    stamp[b], cfg)
+            singles[b], single_out = timed("backend_step looped", one)
+            if not (_equal_fields(tree_index(out, b), single_out)
+                    and _equal_fields(tree_index(batch, b), singles[b])):
+                raise AssertionError(f"batched backend_step at scan {i}: sequence {b} differs "
+                                     "from its step alone")
+            if bool(out.keyframe_added[b]):
+                kf_scans[b].append(i)
+    print(f"batch mapping (a): {n_steps} batched backend_step calls over {N_BATCH_SEQ} "
+          f"sequences bit-equal to each sequence stepped alone (states and outputs)")
+    if device.type == "cuda":
+        # the last step once more, traced (it writes the stores' rows past the
+        # counts: the batch above is not advanced)
+        def run():
+            backend_step(batch, *last_inputs, cfg)
+            sync()
+
+        print(f"profile of one batched backend_step: {json.dumps(bench.profile_run(run))}")
+
+    counts = batch.db.count.tolist()
+    if min(counts) < MIN_SEQ_KEYFRAMES:
+        raise AssertionError(f"batch mapping (b): keyframes per sequence {counts}")
+    kf_err = []
+    for b, seq in enumerate(seqs):
+        g_rot = torch.stack([f.gt_rot for f in seq]).cpu().double()
+        g_trans = torch.stack([f.gt_trans for f in seq]).cpu().double()
+        truth = (g_rot[0].T @ (g_trans - g_trans[0]).T).T[kf_scans[b]]
+        mapped = batch.db.trans[b, :counts[b]].cpu().double()
+        kf_err.append(float((mapped - truth).norm(dim=-1).max()))
+    print(f"batch mapping (b), (c): keyframes per sequence {counts}; max keyframe error per "
+          f"sequence (m) {[round(e, 4) for e in kf_err]} (gate {KF_GATE_M})")
+    if max(kf_err) >= KF_GATE_M:
+        raise AssertionError(f"batch mapping (c): a keyframe {max(kf_err):.4f} m from the truth")
+
+    bucket = 64
+    sols, looped_sols = {}, {}
+    for method in ("dense", "bcr"):
+        def solve(state):
+            g = state.graph
+            g = g._replace(odom_rel_rot=g.odom_rel_rot[..., :bucket, :, :],
+                           odom_rel_trans=g.odom_rel_trans[..., :bucket, :])
+            return solve_pose_graph(g, state.db.rot[..., :bucket, :, :],
+                                    state.db.trans[..., :bucket, :], state.db.count,
+                                    method=method)
+        sols[method] = timed(f"{method} solve batched", lambda: solve(batch))
+        looped_sols[method] = timed(f"{method} solve looped",
+                                    lambda: [solve(s) for s in singles])
+        for b, one in enumerate(looped_sols[method]):
+            if not _equal_fields(tree_index(sols[method], b), one):
+                raise AssertionError(f"batched {method} solve: sequence {b} differs from its "
+                                     "solve alone")
+    moved = max(float((sols[m].trans[b, :counts[b]] - batch.db.trans[b, :counts[b]]).norm(
+        dim=-1).max()) for m in sols for b in range(N_BATCH_SEQ))
+    apart = max(float((sols["dense"].trans[b, :counts[b]] - sols["bcr"].trans[b, :counts[b]]
+                       ).abs().max()) for b in range(N_BATCH_SEQ))
+    batch = timed("solve_graph_host batched", lambda: solve_graph_host(batch, cfg))
+    singles = timed("solve_graph_host looped",
+                    lambda: [solve_graph_host(s, cfg) for s in singles])
+    for b, one in enumerate(singles):
+        if not _equal_fields(tree_index(batch, b), one):
+            raise AssertionError(f"batched solve_graph_host: sequence {b} differs from its "
+                                 "solve alone")
+    print(f"batch mapping (a), (d): dense, bcr and solve_graph_host over {N_BATCH_SEQ} graphs "
+          f"bit-equal to single solves; the solves moved a keyframe at most {moved:.3e} m "
+          f"(gate {SOLVE_MOVE_M}), dense and bcr {apart:.3e} m apart (gate {DENSE_BCR_M})")
+    if not (moved < SOLVE_MOVE_M and apart < DENSE_BCR_M):
+        raise AssertionError("batch mapping (d): the solves moved keyframes or disagree")
+    sync()
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"batch mapping (e): kernel {name} was not launched in phase 9")
+
+    mapped = N_BATCH_SEQ * n_steps
+    print(f"batch mapping: mapped scans/s batched {mapped / times['backend_step batched']:.3f}, "
+          f"looped {mapped / times['backend_step looped']:.3f}; graph solves/s batched dense "
+          f"{N_BATCH_SEQ / times['dense solve batched']:.3f}, looped "
+          f"{N_BATCH_SEQ / times['dense solve looped']:.3f}; bcr "
+          f"{N_BATCH_SEQ / times['bcr solve batched']:.3f} / "
+          f"{N_BATCH_SEQ / times['bcr solve looped']:.3f}; solve_graph_host "
+          f"{N_BATCH_SEQ / times['solve_graph_host batched']:.3f} / "
+          f"{N_BATCH_SEQ / times['solve_graph_host looped']:.3f}; launches {launches}")
+    print(f"batch mapping: phase 9 steps wall s {json.dumps({n: round(t, 3) for n, t in times.items()})}"
+          f", {time.perf_counter() - t_phase:.1f} s in all")
+
+    one = singles[0]
+    bucket_ms = {}
+    for hint in SOLVE_BUCKETS:
+        if hint > one.db.capacity:
+            continue
+        solve_graph_host(one, cfg, count_hint=hint)  # warm
+        ms = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            solve_graph_host(one, cfg, count_hint=hint)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        bucket_ms[hint] = round(statistics.median(ms), 2)
+    print(f"batch mapping: solve_graph_host synced ms by bucket (count {int(one.db.count)}, "
+          f"median of 3) {json.dumps(bucket_ms)}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is false)")
@@ -1083,7 +1276,6 @@ def main() -> int:
               torch.atan2(db.rot[:n_kf, 1, 0], db.rot[:n_kf, 0, 0]))
     del slam, db
     print(f"phase 6: {time.perf_counter() - t0:.1f} s wall")
-    del map_frames
     t0 = time.perf_counter()
     cli_on_recorded_data()
     print(f"phase 7: {time.perf_counter() - t0:.1f} s wall")
@@ -1091,6 +1283,10 @@ def main() -> int:
     parallel_launches = parallel_slice(cfg, pairs, clouds, frames, ground, device)
     print(f"phase 8: {time.perf_counter() - t0:.1f} s wall")
     del clouds, frames, pairs, ground
+    t0 = time.perf_counter()
+    batch_launches = batch_mapping(cfg, map_frames[:N_BATCH_SEQ * SEQ_LEN], device)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s wall")
+    del map_frames
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
@@ -1098,7 +1294,8 @@ def main() -> int:
          "launches_per_lap_scan": map_launches[name] / N_MAP,
          "launches_runtime": runtime_launches[name],
          "launches_per_runtime_scan": runtime_launches[name] / N_MAP,
-         "launches_parallel": parallel_launches[name], **summary[name]}
+         "launches_parallel": parallel_launches[name],
+         "launches_batch_mapping": batch_launches[name], **summary[name]}
         for name in KERNELS]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(smi)

@@ -1,7 +1,8 @@
 """SE(3) rigid transforms as (R, t) pairs, torch port of
-`rolo_tpu/geometry/se3.py`. `exp`, which the LM steps take, forms its
-products with `ops.linalg.small_matmul`, so a batch rounds each step as
-alone."""
+`rolo_tpu/geometry/se3.py`. A product whose left factor is a stack of
+transforms is `ops.linalg.small_matmul`, so a batch rounds each instance as
+alone; a single left factor keeps torch's matmul, which rounds like the
+reference's dot."""
 
 from __future__ import annotations
 
@@ -11,6 +12,10 @@ import torch
 
 from ..ops.linalg import small_matmul
 from . import so3
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a @ b if a.dim() == 2 else small_matmul(a, b)
 
 
 class SE3(NamedTuple):
@@ -26,19 +31,19 @@ class SE3(NamedTuple):
 
     def compose(self, other: "SE3") -> "SE3":
         """self @ other (apply `other` first)."""
-        rot = self.rot @ other.rot
-        trans = (self.rot @ other.trans[..., None])[..., 0] + self.trans
+        rot = _mm(self.rot, other.rot)
+        trans = (_mm(self.rot, other.trans[..., None]))[..., 0] + self.trans
         return SE3(rot, trans)
 
     def inverse(self) -> "SE3":
         rt = self.rot.transpose(-1, -2)
-        return SE3(rt, -(rt @ self.trans[..., None])[..., 0])
+        return SE3(rt, -_mm(rt, self.trans[..., None])[..., 0])
 
     def apply(self, points: torch.Tensor) -> torch.Tensor:
         """Transform points: [..., 3] (one per transform) or [..., N, 3]."""
         if points.dim() == self.trans.dim():
-            return (self.rot @ points[..., None])[..., 0] + self.trans
-        return points @ self.rot.transpose(-1, -2) + self.trans[..., None, :]
+            return _mm(self.rot, points[..., None])[..., 0] + self.trans
+        return _mm(points, self.rot.transpose(-1, -2)) + self.trans[..., None, :]
 
     def as_matrix(self) -> torch.Tensor:
         """-> [..., 4, 4] homogeneous matrix."""
@@ -94,14 +99,14 @@ def log(t: SE3) -> torch.Tensor:
     safe_sq = torch.where(small, torch.ones_like(theta_sq), theta_sq)
     theta = torch.sqrt(safe_sq)
     omega_hat = so3.skew(omega)
-    omega_sq = omega_hat @ omega_hat
+    omega_sq = _mm(omega_hat, omega_hat)
     eye = torch.eye(3, dtype=omega.dtype, device=omega.device).expand(omega_hat.shape)
     half = 0.5 * theta
     cot_term = torch.where(
         small, 1.0 / 12.0, (1.0 - half * torch.cos(half) / torch.sin(half)) / safe_sq
     )
     v_inv = eye - 0.5 * omega_hat + cot_term[..., None, None] * omega_sq
-    return torch.cat([omega, (v_inv @ t.trans[..., None])[..., 0]], dim=-1)
+    return torch.cat([omega, _mm(v_inv, t.trans[..., None])[..., 0]], dim=-1)
 
 
 def rigid_align(src: torch.Tensor, dst: torch.Tensor,

@@ -87,8 +87,9 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     (__graft_entry__.py:59-251): data-parallel registration of n_devices
     pairs, each rank its slice, with the mean error all-reduced; one
     registration with its points split over the ranks; and batched mapping,
-    each rank looping backend_step over its sequences, then a dense graph
-    solve per sequence. Raises on a pose outside the reference's limits."""
+    one backend_step call per step over the rank's sequences, then one dense
+    graph solve over their graphs. Raises on a pose outside the reference's
+    limits."""
     from .graph.solver import solve_pose_graph
     from .mapping import backend as mb
     from .parallel.batch import group_mean, registration_batch, shard_registration_inputs
@@ -157,8 +158,8 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     say("spmd ok (pose-checked)")
 
     # Phase 3: mapping over n_devices sequences (sequence i advances
-    # 0.8 + 0.05 i m a step along x), each rank looping backend_step over
-    # its own, then a dense pose-graph solve per sequence
+    # 0.8 + 0.05 i m a step along x), each rank stepping its own as one
+    # batch, then one batched dense pose-graph solve
     mcfg = RoloConfig(
         mapping=MappingConfig(scan2map_max_iterations=4), loop=LoopConfig(enable=False),
         static=StaticConfig(max_raw_points=2048, max_corner_points=128, max_surf_points=256,
@@ -182,30 +183,30 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     gt_m = np.zeros((n_devices, km, 3), np.float32)
     for bi in range(n_devices):
         gt_m[bi, :, 0] = (0.8 + 0.05 * bi) * np.arange(km)
-    states = {bi: mb.init_backend(mcfg, device) for bi in seqs}
+    states = mb.init_backend(mcfg, device, batch=len(seqs))
+    eye = torch.eye(3, device=device).expand(len(seqs), 3, 3)
+
+    def clouds(points, capacity):
+        one = [PaddedCloud.from_points(p, capacity, device) for p in points]
+        return PaddedCloud(torch.stack([c.xyz for c in one]), torch.stack([c.mask for c in one]))
+
     for si in range(km):
         noise = np.random.default_rng(si).normal(0, 0.02, (n_devices, 3)).astype(np.float32)
-        for bi in seqs:
-            corner = PaddedCloud.from_points(pillar_scan(gt_m[bi, si], seed=100 + bi),
-                                             mst.max_corner_points, device)
-            surf = PaddedCloud.from_points(
-                _synthetic_features(mst.max_surf_points, seed=200 + bi) - gt_m[bi, si],
-                mst.max_surf_points, device)
-            guess = gt_m[bi, si] + (noise[bi] if si else 0.0)
-            states[bi], _ = mb.backend_step(states[bi], corner, surf, surf,
-                                            torch.eye(3, device=device),
-                                            torch.tensor(guess, device=device), True, 0.5 * si,
-                                            mcfg)
-    kf_err, solve_err, bad_counts = 0.0, 0.0, 0.0
-    for bi in seqs:
-        db = states[bi].db
-        bad_counts = max(bad_counts, float(int(db.count) != km))
-        kf = db.trans[:km].cpu().numpy()
-        kf_err = max(kf_err, float(np.linalg.norm(kf - gt_m[bi], axis=1).max()))
-        sol = solve_pose_graph(states[bi].graph, db.rot, db.trans, db.count, method="dense")
-        strans = sol.trans[:km].cpu().numpy()
-        solve_err = max(solve_err, float(np.linalg.norm(strans - kf, axis=1).max())
-                        if np.isfinite(strans).all() else float("inf"))
+        corner = clouds([pillar_scan(gt_m[bi, si], seed=100 + bi) for bi in seqs],
+                        mst.max_corner_points)
+        surf = clouds([_synthetic_features(mst.max_surf_points, seed=200 + bi) - gt_m[bi, si]
+                       for bi in seqs], mst.max_surf_points)
+        guess = gt_m[seqs, si] + (noise[seqs] if si else 0.0)
+        states, _ = mb.backend_step(states, corner, surf, surf, eye,
+                                    torch.tensor(guess, device=device), True, 0.5 * si, mcfg)
+    db = states.db
+    bad_counts = float((db.count != km).any())
+    kf = db.trans[:, :km].cpu().numpy()
+    kf_err = float(np.linalg.norm(kf - gt_m[seqs], axis=2).max())
+    sol = solve_pose_graph(states.graph, db.rot, db.trans, db.count, method="dense")
+    strans = sol.trans[:, :km].cpu().numpy()
+    solve_err = (float(np.linalg.norm(strans - kf, axis=2).max()) if np.isfinite(strans).all()
+                 else float("inf"))
     bad_counts, kf_err, solve_err = _group_max([bad_counts, kf_err, solve_err], device)
     say(f"batched mapping kf_err max={kf_err:.3f} m, graph-solve drift {solve_err:.4f} m")
     if bad_counts:

@@ -18,16 +18,18 @@ torch port of `rolo_tpu/loop/closure.py` (backMapping's loop-closure thread).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import TYPE_CHECKING, NamedTuple, Tuple
 
 import torch
 
 from ..geometry.se3 import SE3
-from ..mapping.keyframes import KeyframeDB
 from ..ops.rows import read_row
 from ..pointcloud.cloud import PaddedCloud
 from ..pointcloud.features import voxel_downsample
 from ..voxel.knn import knn_indices
+
+if TYPE_CHECKING:  # annotation only: mapping imports this module
+    from ..mapping.keyframes import KeyframeDB
 
 
 def detect_loop_distance(db: KeyframeDB, already_matched: torch.Tensor, search_radius: float,

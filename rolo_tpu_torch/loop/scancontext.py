@@ -24,7 +24,8 @@ def make_descriptor(xyz: torch.Tensor, mask: torch.Tensor, num_ring: int = 20,
     ring = clamp(ceil(r / R_max * NR), 1, NR), sector = clamp(ceil(theta_deg
     / 360 * NS), 1, NS), z lifted by `lidar_height`, empty bins 0. The bin
     max is a scatter-reduce here where the reference sorts (the same exact
-    maximum)."""
+    maximum). xyz [..., N, 3], mask [..., N] -> [..., num_ring, num_sector]:
+    each cloud of a batch bins into its own slice of one scatter."""
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2] + lidar_height
     azim_range = torch.sqrt(x * x + y * y)
     theta = torch.atan2(y, x) * (180.0 / math.pi)
@@ -33,9 +34,14 @@ def make_descriptor(xyz: torch.Tensor, mask: torch.Tensor, num_ring: int = 20,
     sector = torch.clamp(torch.ceil(theta / 360.0 * num_sector), 1, num_sector) - 1
     valid = mask & (azim_range <= max_radius)
     n_bins = num_ring * num_sector
+    lead = mask.shape[:-1]
+    n_clouds = mask[..., 0].numel()
     flat = torch.where(valid, ring.long() * num_sector + sector.long(), n_bins)
-    desc = z.new_zeros(n_bins + 1).scatter_reduce_(0, flat, z, "amax", include_self=False)
-    return desc[:n_bins].reshape(num_ring, num_sector)
+    flat = flat.reshape(n_clouds, -1) + (n_bins + 1) * torch.arange(n_clouds,
+                                                                     device=flat.device)[:, None]
+    desc = z.new_zeros(n_clouds * (n_bins + 1)).scatter_reduce_(
+        0, flat.reshape(-1), z.reshape(-1), "amax", include_self=False)
+    return desc.reshape(n_clouds, n_bins + 1)[:, :n_bins].reshape(*lead, num_ring, num_sector)
 
 
 def ring_key(desc: torch.Tensor) -> torch.Tensor:
@@ -58,7 +64,7 @@ class ScanContextDB(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.desc.shape[0]
+        return self.desc.shape[-3]
 
 
 def init_db(capacity: int, num_ring: int = 20, num_sector: int = 60, device=None,
@@ -75,7 +81,8 @@ def init_db(capacity: int, num_ring: int = 20, num_sector: int = 60, device=None
 def add_descriptor(db: ScanContextDB, desc: torch.Tensor, enable=True) -> ScanContextDB:
     """Append one descriptor with its keys (scancontext.py:110-124); a no-op
     when `enable` is false or the store is full. Rows are written in place;
-    the returned value carries the new count."""
+    the returned value carries the new count. A store whose fields lead with
+    [B] takes [B] descriptors and guards."""
     idx = torch.clamp(db.count, max=db.capacity - 1)
     ok = torch.as_tensor(enable, device=db.count.device) & (db.count < db.capacity)
     write_row_(db.desc, idx, desc, ok)

@@ -15,6 +15,12 @@ prior queue are written one row at a time in place, so a step's state shares
 its stores with the state it came from. Each `lax.cond` of the reference is
 one host branch. A state moves between the two packages with
 `backend_state_from_numpy` / `backend_state_to_numpy`.
+
+`backend_step` and `solve_graph_host` also take B sequences' states at once
+(`init_backend(..., batch=B)`, or `ops.pytree.tree_stack` of B states):
+the reference's offline `jax.vmap(backend_step)`. Each instance gets the bits
+it gets alone; the host branch on the keyframe count becomes a per-instance
+selection.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from ..graph.factors import PoseGraph, add_between, empty_graph
 from ..graph.solver import solve_pose_graph
 from ..loop import closure as loopmod
 from ..loop import scancontext as sc
-from ..ops.pytree import tree_from_numpy, tree_to_numpy
+from ..ops.pytree import tree_from_numpy, tree_index, tree_stack, tree_to_numpy
 from ..ops.rows import read_row, write_row_
 from ..pointcloud.cloud import PaddedCloud
 from ..pointcloud.features import voxel_downsample
@@ -72,10 +78,13 @@ class BackendOutput(NamedTuple):
     solve_due: torch.Tensor  # [] bool: pending_solve & keyframe_added
 
 
-def init_backend(cfg: RoloConfig, device=None, dtype=torch.float32) -> BackendState:
+def init_backend(cfg: RoloConfig, device=None, dtype=torch.float32,
+                 batch: int = None) -> BackendState:
+    """A fresh state; with `batch`, B of them stacked along a leading dim
+    (~0.44 GB each at `RoloConfig()` capacities)."""
     device = default_device() if device is None else device
     st = cfg.static
-    return BackendState(
+    state = BackendState(
         db=init_db(st.max_keyframes, st.max_corner_points, st.max_surf_points, device, dtype),
         graph=empty_graph(st.max_keyframes, st.max_loop_factors, st.max_prior_factors, device,
                           dtype),
@@ -91,19 +100,20 @@ def init_backend(cfg: RoloConfig, device=None, dtype=torch.float32) -> BackendSt
         pending_solve=torch.tensor(False, device=device),
         dropped_counts=torch.zeros(4, dtype=torch.int32, device=device),
     )
+    return state if batch is None else tree_stack([state] * batch)
 
 
 def _rpy_pose(rpy: torch.Tensor, xyz: torch.Tensor) -> SE3:
-    return SE3(so3.rpy_to_matrix(rpy[0], rpy[1], rpy[2]), xyz)
+    return SE3(so3.rpy_to_matrix(rpy[..., 0], rpy[..., 1], rpy[..., 2]), xyz)
 
 
 def _rpy_of(rot: torch.Tensor) -> torch.Tensor:
-    return torch.stack(so3.matrix_to_rpy(rot))
+    return torch.stack(so3.matrix_to_rpy(rot), dim=-1)
 
 
 def _count_drop(counts: torch.Tensor, slot: int, dropped: torch.Tensor) -> torch.Tensor:
-    """dropped_counts with `dropped` (a 0-dim bool) added at `slot`."""
-    return counts + torch.nn.functional.pad(dropped.to(torch.int32)[None], (slot, 3 - slot))
+    """dropped_counts with `dropped` (a bool, [] or [B]) added at `slot`."""
+    return counts + torch.nn.functional.pad(dropped.to(torch.int32)[..., None], (slot, 3 - slot))
 
 
 def _update_initial_guess(state: BackendState, front_rot, front_trans, odom_available):
@@ -114,8 +124,8 @@ def _update_initial_guess(state: BackendState, front_rot, front_trans, odom_avai
         SE3(front_rot, front_trans))
     guessed = cur.compose(incre)
     use = odom_available & state.has_front & (state.db.count > 0)
-    rot = torch.where(use, guessed.rot, cur.rot)
-    trans = torch.where(use, guessed.trans, cur.trans)
+    rot = torch.where(use[..., None, None], guessed.rot, cur.rot)
+    trans = torch.where(use[..., None], guessed.trans, cur.trans)
     return _rpy_of(rot), trans
 
 
@@ -125,17 +135,33 @@ def backend_step(state: BackendState, corner: PaddedCloud, surf: PaddedCloud,
                  ) -> Tuple[BackendState, BackendOutput]:
     """One mapping step (backend.py:116-246). corner / surf: this scan's
     feature clouds in the sensor frame; sc_cloud: the cloud scan-context
-    reads; front_rot / front_trans: the front-end pose."""
+    reads; front_rot / front_trans: the front-end pose.
+
+    With a state of B sequences (its fields lead with [B]) the clouds lead
+    with [B], front_rot / front_trans are [B, 3, 3] / [B, 3], and
+    odom_available / scan_time are scalars or [B]: one step of each
+    sequence, the outputs [B]. Submap extraction and scan-to-map run when
+    any instance has a keyframe, and each instance takes their result only
+    if it has one."""
+    if state.xyz.dim() == 1:
+        one = tree_index(state, None)
+        new, out = backend_step(one, *(PaddedCloud(c.xyz[None], c.mask[None])
+                                       for c in (corner, surf, sc_cloud)),
+                                front_rot[None], front_trans[None], odom_available, scan_time, cfg)
+        return tree_index(new, 0), tree_index(out, 0)
     st, m = cfg.static, cfg.mapping
-    dev = state.xyz.device
-    odom_available = torch.as_tensor(odom_available, device=dev)
-    scan_time = torch.as_tensor(scan_time, dtype=state.xyz.dtype, device=dev)
+    dev, bsz = state.xyz.device, state.xyz.shape[0]
+    odom_available = torch.as_tensor(odom_available, device=dev).expand(bsz)
+    scan_time = torch.as_tensor(scan_time, dtype=state.xyz.dtype, device=dev).expand(bsz)
     rpy, xyz = _update_initial_guess(state, front_rot, front_trans, odom_available)
 
     corner_ds = voxel_downsample(corner, m.mapping_corner_leaf_size, st.max_corner_points)
     surf_ds = voxel_downsample(surf, m.mapping_surf_leaf_size, st.max_surf_points)
 
-    if bool(state.db.count > 0):
+    has_map = state.db.count > 0
+    degen = torch.zeros(bsz, dtype=torch.bool, device=dev)
+    iters = nfac = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    if bool(has_map.any()):
         sub_c, sub_s = extract_submap(
             state.db, xyz, scan_time, m.surrounding_keyframe_search_radius,
             m.surrounding_keyframe_recency_sec, max_nearby=m.surrounding_keyframe_max_nearby,
@@ -147,11 +173,11 @@ def backend_step(state: BackendState, corner: PaddedCloud, surf: PaddedCloud,
             degeneracy_threshold=m.degeneracy_eigen_threshold, chunk=st.knn_query_chunk,
             rebind_every=m.scan2map_rebind_every, approx_knn=m.approx_knn,
             n_candidates=m.scan2map_candidates)
-        rpy, xyz, degen, iters, nfac = (res.rpy, res.trans, res.degenerate, res.iterations,
-                                        res.num_factors)
-    else:
-        degen = torch.tensor(False, device=dev)
-        iters = nfac = torch.tensor(0, dtype=torch.int32, device=dev)
+        rpy = torch.where(has_map[:, None], res.rpy, rpy)
+        xyz = torch.where(has_map[:, None], res.trans, xyz)
+        degen = res.degenerate & has_map
+        iters = torch.where(has_map, res.iterations, iters)
+        nfac = torch.where(has_map, res.num_factors, nfac)
     rpy, xyz = constrain_transform(rpy, xyz, m.rotation_tolerance, m.z_tolerance)
     pose = _rpy_pose(rpy, xyz)
 
@@ -166,8 +192,9 @@ def backend_step(state: BackendState, corner: PaddedCloud, surf: PaddedCloud,
     odom_idx = torch.clamp(count, max=st.max_keyframes - 1)
     write_row_(graph.odom_rel_rot, odom_idx, rel.rot, add & ~is_first)
     write_row_(graph.odom_rel_trans, odom_idx, rel.trans, add & ~is_first)
-    graph = graph._replace(first_rot=torch.where(add & is_first, pose.rot, graph.first_rot),
-                           first_trans=torch.where(add & is_first, pose.trans, graph.first_trans))
+    first = (add & is_first)[:, None]
+    graph = graph._replace(first_rot=torch.where(first[..., None], pose.rot, graph.first_rot),
+                           first_trans=torch.where(first, pose.trans, graph.first_trans))
     desc = sc.make_descriptor(sc_cloud.xyz, sc_cloud.mask, cfg.loop.sc_num_ring,
                               cfg.loop.sc_num_sector, cfg.loop.sc_max_radius,
                               cfg.loop.sc_lidar_height)
@@ -194,16 +221,20 @@ _SOLVE_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 def _apply_solution(state: BackendState, sol_rot, sol_trans) -> BackendState:
     """Write a bucket's solved poses into the DB and move the current pose
     by the latest keyframe's correction `solved o old^-1` (backend.py:
-    256-289), so a no-op solve leaves the current pose unchanged."""
-    b = sol_rot.shape[0]
+    256-289), so a no-op solve leaves the current pose unchanged. A state
+    without keyframes keeps its pose, as does each such instance of a
+    batch."""
+    b = sol_rot.shape[-3]
     db = state.db
     old_latest = latest_pose(db)
-    valid = (torch.arange(b, device=sol_rot.device) < db.count)
-    db.rot[:b] = torch.where(valid[:, None, None], sol_rot, db.rot[:b])
-    db.trans[:b] = torch.where(valid[:, None], sol_trans, db.trans[:b])
+    valid = db.valid()[..., :b]
+    db.rot[..., :b, :, :] = torch.where(valid[..., None, None], sol_rot, db.rot[..., :b, :, :])
+    db.trans[..., :b, :] = torch.where(valid[..., None], sol_trans, db.trans[..., :b, :])
     delta = latest_pose(db).compose(old_latest.inverse())
     cur = delta.compose(_rpy_pose(state.rpy, state.xyz))
-    return state._replace(db=db, rpy=_rpy_of(cur.rot), xyz=cur.trans,
+    has_kf = (db.count > 0)[..., None]
+    return state._replace(db=db, rpy=torch.where(has_kf, _rpy_of(cur.rot), state.rpy),
+                          xyz=torch.where(has_kf, cur.trans, state.xyz),
                           pending_solve=torch.zeros_like(state.pending_solve))
 
 
@@ -214,17 +245,23 @@ def solve_graph_host(state: BackendState, cfg: RoloConfig = None,
     `count_hint`: a host-known upper bound on the keyframe count (such as
     the number of mapping steps driven); with it the bucket is chosen
     without reading the device. A too-large hint only costs a larger bucket:
-    the solver masks by the device-side count."""
+    the solver masks by the device-side count. A batched state solves its B
+    graphs at once, at the bucket of its largest count, each masked by its
+    own."""
     del cfg  # kept for the reference's signature
-    count = int(state.db.count) if count_hint is None else int(count_hint)
+    count = int(state.db.count.max()) if count_hint is None else int(count_hint)
     if count < 1:
         return state._replace(pending_solve=torch.zeros_like(state.pending_solve))
     cap = state.db.capacity
     bucket = next((b for b in _SOLVE_BUCKETS if count <= b <= cap), cap)
     g = state.graph
-    g_b = g._replace(odom_rel_rot=g.odom_rel_rot[:bucket], odom_rel_trans=g.odom_rel_trans[:bucket])
-    sol = solve_pose_graph(g_b, state.db.rot[:bucket], state.db.trans[:bucket], state.db.count,
-                           method="bcr")
+    g_b = g._replace(odom_rel_rot=g.odom_rel_rot[..., :bucket, :, :],
+                     odom_rel_trans=g.odom_rel_trans[..., :bucket, :])
+    sol = solve_pose_graph(g_b, state.db.rot[..., :bucket, :, :], state.db.trans[..., :bucket, :],
+                           state.db.count, method="bcr")
+    if state.xyz.dim() == 1:  # as a batch of one, so it rounds as an instance of a batch
+        return tree_index(_apply_solution(tree_index(state, None), sol.rot[None],
+                                          sol.trans[None]), 0)
     return _apply_solution(state, sol.rot, sol.trans)
 
 

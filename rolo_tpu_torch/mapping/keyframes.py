@@ -2,6 +2,10 @@
 `rolo_tpu/mapping/keyframes.py`: world-frame keyframe poses and their
 sensor-frame feature clouds at fixed capacity with a count, so submap
 assembly is a masked gather.
+
+A DB whose fields lead with [B] (count [B]) holds B sequences' keyframes;
+every function here takes it with [B] poses, stamps and clouds, and treats
+each instance as it would alone.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..geometry.se3 import SE3
+from ..ops.linalg import matmul_each
 from ..ops.rows import read_row, write_row_
 from ..pointcloud.cloud import PaddedCloud
 from ..pointcloud.features import voxel_downsample
@@ -29,10 +34,10 @@ class KeyframeDB(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.rot.shape[0]
+        return self.rot.shape[-3]
 
     def valid(self) -> torch.Tensor:
-        return torch.arange(self.capacity, device=self.count.device) < self.count
+        return torch.arange(self.capacity, device=self.count.device) < self.count[..., None]
 
 
 def init_db(max_keyframes: int, corner_cap: int, surf_cap: int, device=None,
@@ -80,16 +85,16 @@ def should_add_keyframe(db: KeyframeDB, pose: SE3, dist_threshold: float,
     """saveFrame gate (keyframes.py:86-100): the first keyframe, or motion
     from the last one beyond the distance or any rpy angle threshold."""
     xyzrpy = latest_pose(db).inverse().compose(pose).to_xyzrpy()
-    moved = (torch.linalg.vector_norm(xyzrpy[:3]) >= dist_threshold) | torch.any(
-        torch.abs(xyzrpy[3:]) >= angle_threshold)
+    moved = (torch.linalg.vector_norm(xyzrpy[..., :3], dim=-1) >= dist_threshold) | torch.any(
+        torch.abs(xyzrpy[..., 3:]) >= angle_threshold, dim=-1)
     return (db.count == 0) | moved
 
 
 def update_poses(db: KeyframeDB, rot: torch.Tensor, trans: torch.Tensor) -> KeyframeDB:
     """Rewrite the valid poses after a graph solve (keyframes.py:103-110)."""
     valid = db.valid()
-    return db._replace(rot=torch.where(valid[:, None, None], rot, db.rot),
-                       trans=torch.where(valid[:, None], trans, db.trans))
+    return db._replace(rot=torch.where(valid[..., None, None], rot, db.rot),
+                       trans=torch.where(valid[..., None], trans, db.trans))
 
 
 def extract_submap(db: KeyframeDB, query_trans: torch.Tensor, query_time, search_radius: float,
@@ -99,19 +104,33 @@ def extract_submap(db: KeyframeDB, query_trans: torch.Tensor, query_time, search
     `max_nearby` keyframes among those within `search_radius` of the query
     or within `recency_sec` of its time, their clouds in world coordinates,
     voxel-downsampled. Which ineligible keyframes fill the top-k's spare
-    slots may differ from the reference (ties at inf); they are masked."""
-    d2 = torch.sum((db.trans - query_trans) ** 2, dim=-1)
-    recent = (query_time - db.time) < recency_sec
+    slots may differ from the reference (ties at inf); they are masked.
+    With a [B] DB, query_trans [B, 3] and query_time [B] (or a scalar), the
+    clouds lead with [B]."""
+    if db.rot.dim() == 3:
+        one = KeyframeDB(*(t[None] for t in db))
+        subs = extract_submap(one, query_trans[None], query_time, search_radius, recency_sec,
+                              max_nearby, corner_out_cap, surf_out_cap, corner_leaf, surf_leaf)
+        return tuple(PaddedCloud(c.xyz[0], c.mask[0]) for c in subs)
+    bsz = db.rot.shape[0]
+    query_time = torch.as_tensor(query_time, dtype=db.time.dtype, device=db.time.device)
+    d2 = torch.sum((db.trans - query_trans[:, None, :]) ** 2, dim=-1)
+    recent = (query_time.reshape(-1, 1) - db.time) < recency_sec
     eligible = db.valid() & ((d2 <= search_radius ** 2) | recent)
     score = torch.where(eligible, d2, float("inf"))
-    sel = torch.topk(score, min(max_nearby, db.capacity), largest=False).indices
-    sel_ok = torch.isfinite(score[sel])
-    rot, trans = db.rot[sel], db.trans[sel]
+    sel = torch.topk(score, min(max_nearby, db.capacity), dim=-1, largest=False).indices
+    sel_ok = torch.isfinite(torch.gather(score, 1, sel))
+    nsel = sel.shape[1]
+    rot = torch.gather(db.rot, 1, sel[..., None, None].expand(bsz, nsel, 3, 3))
+    trans = torch.gather(db.trans, 1, sel[..., None].expand(bsz, nsel, 3))
 
     def gather(xyz_all, mask_all, out_cap, leaf):
-        world = xyz_all[sel] @ rot.transpose(-1, -2) + trans[:, None, :]
-        mask = mask_all[sel] & sel_ok[:, None]
-        return voxel_downsample(PaddedCloud(world.reshape(-1, 3), mask.reshape(-1)), leaf, out_cap)
+        n = xyz_all.shape[2]
+        xyz = torch.gather(xyz_all, 1, sel[..., None, None].expand(bsz, nsel, n, 3))
+        world = matmul_each(xyz, rot.transpose(-1, -2)) + trans[:, :, None, :]
+        mask = torch.gather(mask_all, 1, sel[..., None].expand(bsz, nsel, n)) & sel_ok[..., None]
+        return voxel_downsample(PaddedCloud(world.reshape(bsz, -1, 3), mask.reshape(bsz, -1)),
+                                leaf, out_cap)
 
     return (gather(db.corner_xyz, db.corner_mask, corner_out_cap, corner_leaf),
             gather(db.surf_xyz, db.surf_mask, surf_out_cap, surf_leaf))

@@ -20,6 +20,48 @@ def small_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def each(fn, *args):
+    """fn over instance b of args (each leading with the same batch dim [B]),
+    one call per instance, the results stacked (a tuple of results stacked
+    field by field). Each instance gets exactly the ops, and the bits, of
+    the unbatched call: the way to batch a product or a LAPACK / cuSOLVER
+    call whose kernel cuBLAS or cuSOLVER would pick by the batch count, or
+    whose rounding decides a gate or a neighbour (plane fits, k-NN tiles).
+    The results are contiguous at every B (a LAPACK or cuSOLVER result may
+    be column-major, and a later product rounds by its operands' layout); at
+    B = 1 that is the only copy."""
+    if args[0].shape[0] == 1:
+        outs = [fn(*(a[0] for a in args))]
+        stack = (lambda ts: ts[0][None].contiguous())
+    else:
+        outs = [fn(*items) for items in zip(*args)]
+        stack = torch.stack
+    if not isinstance(outs[0], tuple):
+        return stack(outs)
+    fields = [stack(list(field)) for field in zip(*outs)]
+    return type(outs[0])(*fields) if hasattr(outs[0], "_fields") else tuple(fields)
+
+
+def matmul_each(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b one instance of the batch dim [B] at a time (`each`)."""
+    return each(torch.matmul, a, b)
+
+
+SUM_TILES = 32
+
+
+def fixed_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in two fixed stages: SUM_TILES contiguous tiles,
+    then the tiles. torch sizes a reduction's thread blocks (and, on the CPU,
+    its thread split) by its number of outputs, so one flat sum per instance
+    would round an instance differently in a batch of B than alone; here
+    every instance is summed alike whatever B is."""
+    pad = (-v.shape[-1]) % SUM_TILES
+    if pad:
+        v = torch.nn.functional.pad(v, (0, pad))
+    return v.reshape(*v.shape[:-1], SUM_TILES, -1).sum(-1).sum(-1)
+
+
 def inv3x3(m: torch.Tensor) -> torch.Tensor:
     """Closed-form adjugate inverse of [..., 3, 3] matrices."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]

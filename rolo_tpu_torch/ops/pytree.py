@@ -56,6 +56,25 @@ def tree_replace_leaves(tree, leaves: Iterator):
     return next(leaves)
 
 
+def tree_map(fn, tree):
+    """`tree` with fn applied to each leaf."""
+    return tree_replace_leaves(tree, iter([fn(leaf) for leaf in tree_leaves(tree)]))
+
+
+def tree_stack(trees):
+    """B trees of one structure as one tree whose leaves lead with [B] (the
+    counterpart of `jtu.tree_map(jnp.stack, ...)`); the leaves are new
+    contiguous tensors."""
+    stacked = [torch.stack(leaves) for leaves in zip(*(tree_leaves(t) for t in trees))]
+    return tree_replace_leaves(trees[0], iter(stacked))
+
+
+def tree_index(tree, b):
+    """Instance b of a tree whose leaves lead with [B] (views: the
+    instance's stores are the batch's)."""
+    return tree_map(lambda leaf: leaf[b], tree)
+
+
 def tree_from_numpy(cls, arrays: Mapping, device, prefix: str = ""):
     """An instance of the NamedTuple `cls` on `device` from `tree_to_numpy`'s
     layout, with the same shapes and dtypes (writable copies). Fields whose

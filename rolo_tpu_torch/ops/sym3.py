@@ -49,6 +49,10 @@ def quad(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.sum(v * matvec(s, v), dim=-2)
 
 
+def add(s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return s + t
+
+
 def identity_like(s: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """[..., 6, N] identity * scale."""
     out = torch.zeros_like(s)

@@ -129,33 +129,49 @@ def voxel_downsample_rings(xyz: torch.Tensor, sel: torch.Tensor, leaf: float,
     (features.py:174-182). xyz [R, H, 3], sel [R, H]."""
     r, h = sel.shape
     ring_id = torch.arange(r, dtype=torch.int32, device=sel.device)[:, None].expand(r, h)
-    return _voxel_downsample_impl(xyz.reshape(-1, 3), sel.reshape(-1), leaf, capacity,
-                                  ring_id.reshape(-1))
+    out = _voxel_downsample_impl(xyz.reshape(1, -1, 3), sel.reshape(1, -1), leaf, capacity,
+                                 ring_id.reshape(1, -1))
+    return PaddedCloud(out.xyz[0], out.mask[0])
 
 
 def voxel_downsample(cloud: PaddedCloud, leaf: float, capacity: int) -> PaddedCloud:
-    """Whole-cloud voxel-grid centroid downsample (features.py:185-187)."""
+    """Whole-cloud voxel-grid centroid downsample (features.py:185-187):
+    xyz [N, 3], or [B, N, 3] for B clouds at once."""
+    if cloud.xyz.dim() == 2:
+        out = voxel_downsample(PaddedCloud(cloud.xyz[None], cloud.mask[None]), leaf, capacity)
+        return PaddedCloud(out.xyz[0], out.mask[0])
     return _voxel_downsample_impl(cloud.xyz, cloud.mask, leaf, capacity, None)
 
 
 def _voxel_downsample_impl(xyz, sel, leaf, capacity, ring_id):
-    """Sort by the int32 hash (salted by the ring when given), segment
-    boundaries from the exact integer coordinates, segment means from
-    fixed-order segment sums over the sorted ids (features.py:190-223)."""
+    """Sort each cloud by the int32 hash (salted by the ring when given),
+    segment boundaries from the exact integer coordinates, segment means
+    from fixed-order segment sums over the sorted ids (features.py:190-223).
+    xyz [B, N, 3], sel [B, N]: cloud b's segments are offset by
+    b * capacity, so one segment sum serves the batch and sums each cloud's
+    points in the order it would alone. Unselected points and the overflow
+    belong to no segment (one segment of them would be one long sequential
+    sum); with B > 1 that takes a stable sort of the offset ids."""
+    bsz = xyz.shape[0]
     coord = torch.floor(xyz / leaf).to(torch.int32)
     key = torch.where(sel, hash_coord(coord, salt=ring_id), 0x7FFFFFFF)
-    order = torch.argsort(key, stable=True)
-    coord_s, xyz_s, sel_s = coord[order], xyz[order], sel[order]
-    same = (coord_s[1:] == coord_s[:-1]).all(dim=1) & sel_s[1:] & sel_s[:-1]
+    order = torch.argsort(key, dim=-1, stable=True)
+    order3 = order[..., None].expand(*order.shape, 3)
+    coord_s, xyz_s = torch.gather(coord, 1, order3), torch.gather(xyz, 1, order3)
+    sel_s = torch.gather(sel, 1, order)
+    same = (coord_s[:, 1:] == coord_s[:, :-1]).all(dim=-1) & sel_s[:, 1:] & sel_s[:, :-1]
     if ring_id is not None:
-        ring_s = ring_id[order]
-        same &= ring_s[1:] == ring_s[:-1]
-    new_seg = torch.cat([torch.ones_like(same[:1]), ~same])
-    seg_id = torch.cumsum(new_seg.to(torch.int64), 0) - 1
+        ring_s = torch.gather(ring_id, 1, order)
+        same &= ring_s[:, 1:] == ring_s[:, :-1]
+    new_seg = torch.cat([torch.ones_like(same[:, :1]), ~same], dim=1)
+    seg_id = torch.cumsum(new_seg.to(torch.int64), 1) - 1
     seg_id = torch.where(sel_s, torch.clamp(seg_id, max=capacity), capacity)
-    sums = segment_sum(torch.cat([xyz_s, sel_s.to(xyz.dtype)[:, None]], dim=1),
-                       segments(seg_id, capacity, is_sorted=True))
-    cnts = sums[:, 3]
-    centroids = sums[:, :3] / torch.clamp(cnts, min=1.0)[:, None]
+    offset = capacity * torch.arange(bsz, device=xyz.device)[:, None]
+    seg_id = torch.where(seg_id < capacity, seg_id + offset, bsz * capacity)
+    values = torch.cat([xyz_s, sel_s.to(xyz.dtype)[..., None]], dim=-1).reshape(-1, 4)
+    sums = segment_sum(values, segments(seg_id.reshape(-1), bsz * capacity, is_sorted=bsz == 1))
+    sums = sums.reshape(bsz, capacity, 4)
+    cnts = sums[..., 3]
+    centroids = sums[..., :3] / torch.clamp(cnts, min=1.0)[..., None]
     mask = cnts > 0
-    return PaddedCloud(torch.where(mask[:, None], centroids, 0.0), mask)
+    return PaddedCloud(torch.where(mask[..., None], centroids, 0.0), mask)

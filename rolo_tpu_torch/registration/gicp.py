@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..ops import sym3
-from ..ops.linalg import small_matmul
+from ..ops.linalg import fixed_sum, small_matmul
 from ..ops.voxel_join import pack_polar, pack_uniform
 from ..voxel.voxelmap import VoxelMap, lookup_join, polar_bins, uniform_bins
 
@@ -97,22 +97,10 @@ def _dot3(a, b):
     return torch.sum(a * b, dim=-2)
 
 
-_SUM_TILES = 32
-
-
 def _wsum(w, x):
-    """Per-instance sum of w * x over (offset, point): [B, O, N] -> [B].
-
-    Two fixed stages, the product's 32 contiguous tiles and then the tiles:
-    torch sizes a reduction's thread blocks (and, on the CPU, its thread
-    split) by its number of outputs, so one flat sum per instance would round
-    an instance differently in a batch of B than alone. Here every instance
-    is summed alike whatever B is."""
-    v = (w * x).reshape(w.shape[0], -1)
-    pad = (-v.shape[1]) % _SUM_TILES
-    if pad:
-        v = torch.nn.functional.pad(v, (0, pad))
-    return v.reshape(v.shape[0], _SUM_TILES, -1).sum(-1).sum(-1)
+    """Per-instance sum of w * x over (offset, point): [B, O, N] -> [B], in
+    `fixed_sum`'s two fixed stages."""
+    return fixed_sum((w * x).reshape(w.shape[0], -1))
 
 
 def compute_error(ctx: GICPContext, corr: Correspondences, rot, trans) -> torch.Tensor:

@@ -2,7 +2,9 @@
 port of `rolo_tpu/voxel/knn.py`.
 
 `knn_indices` takes the reference's arguments: the distance tile in the
-matmul form |q|^2 - 2 q.x + |x|^2 (full f32; the scan-to-submap binds) or the
+matmul form |q|^2 - 2 q.x + |x|^2 (full f32; the scan-to-submap binds; q.x
+one matmul per cloud of a batch, `matmul_each`, so each rounds as alone,
+where cuBLAS's batched matmul picks its kernel by the batch) or the
 cancellation-free elementwise form (covariance neighbourhoods), a plain
 argmin for k=1, and `approximate=True` as an exact top-k, which is what the
 reference computes off the TPU.
@@ -23,6 +25,7 @@ import torch
 from ..ops import sym3
 from ..ops.eig3 import eigh3
 from ..ops.knn_moments import knn_moments
+from ..ops.linalg import matmul_each
 
 PLANE = "plane"
 MIN_EIG = "min_eig"
@@ -69,7 +72,8 @@ def knn_indices(query: torch.Tensor, query_mask: torch.Tensor, points: torch.Ten
         if form == "elementwise":
             d2 = _d2_chunk(qc, pts)
         else:
-            d2 = torch.sum(qc * qc, dim=-1, keepdim=True) - 2.0 * (qc @ pts.transpose(1, 2)) + x2
+            d2 = (torch.sum(qc * qc, dim=-1, keepdim=True)
+                  - 2.0 * matmul_each(qc, pts.transpose(1, 2)) + x2)
         d2 = d2 + inf_row
         if k == 1:
             out.append(torch.argmin(d2, dim=-1, keepdim=True))
@@ -172,3 +176,16 @@ def estimate_cov6(xyz: torch.Tensor, mask: torch.Tensor, k: int = 20, method: st
     elif method != NONE:
         cov6 = sym3.from_mat(regularize_covariance(sym3.to_mat(cov6), method))
     return torch.where(mask[:, None, :], cov6, sym3.identity_like(cov6))
+
+
+def estimate_covariances(xyz: torch.Tensor, mask: torch.Tensor, k: int = 20, method: str = PLANE,
+                         chunk: int = 512) -> torch.Tensor:
+    """Reference-shaped covariances (knn.py:315-324): xyz [..., N, 3], mask
+    [..., N] -> [..., N, 3, 3], through `estimate_cov6` (kernel K2 on the
+    card). `chunk` is the reference's tile size of its exact selector; K2
+    tiles by itself."""
+    del chunk
+    lead = xyz.shape[:-2]
+    cov6 = estimate_cov6(xyz.reshape(-1, *xyz.shape[-2:]), mask.reshape(-1, mask.shape[-1]), k=k,
+                         method=method)
+    return sym3.to_mat(cov6).reshape(*lead, *cov6.shape[-1:], 3, 3)

@@ -35,6 +35,18 @@ def polar_coord(xyz: torch.Tensor, polar_res: Sequence[float]) -> torch.Tensor:
     return torch.stack(polar_bins(xyz[..., 0], xyz[..., 1], xyz[..., 2], polar_res), dim=-1)
 
 
+def polar_origin(coord: torch.Tensor, polar_res: Sequence[float]) -> torch.Tensor:
+    """Bin center -> cartesian point (voxelmap.py:66-76): coord [..., 3]
+    int (theta, phi, r) bins -> [..., 3]."""
+    res = torch.as_tensor(polar_res, dtype=torch.float32, device=coord.device)
+    polar = (coord.to(torch.float32) + 0.5) * res
+    theta = polar[..., 0] - math.pi
+    phi, r = polar[..., 1], polar[..., 2]
+    sin_phi = torch.sin(phi)
+    return torch.stack([r * sin_phi * torch.cos(theta), r * sin_phi * torch.sin(theta),
+                        r * torch.cos(phi)], dim=-1)
+
+
 def uniform_bins(x, y, z, resolution: float):
     """Cartesian bins floor(a / res - 0.5) (voxelmap.py:84-89)."""
     def f(a):

@@ -632,3 +632,114 @@ def test_spmd_one_rank_cuda_matches_cpu(cuda):
     assert torch.allclose(got.trans.cpu(), want.trans, atol=2e-3)
     assert torch.allclose(got.rot, one.rot[0], atol=2e-4)
     assert torch.allclose(got.trans, one.trans[0], atol=2e-3)
+
+
+def test_estimate_covariances_cuda_matches_plain(cuda):
+    """The reference-shaped covariances through K2 on the card against the
+    same call on CPU tensors (K2's plain version): the neighbourhood counts
+    agree, and most points' covariances to 1e-3 (the E[xx] - mu mu^T
+    cancellation makes near-isotropic neighbourhoods order-sensitive, as
+    tests/test_torch_voxel.py holds them against the reference)."""
+    from rolo_tpu_torch.voxel.knn import estimate_covariances
+
+    rng = np.random.default_rng(9)
+    pts = torch.tensor(_bench_tool().world(9, 8192, 6)[1])  # four noisy walls
+    mask = torch.tensor(rng.random(8192) < 0.9)
+    knn_moments.launches = 0
+    got = estimate_covariances(pts.to(cuda), mask.to(cuda), k=20).cpu()
+    want = estimate_covariances(pts, mask, k=20)
+    assert knn_moments.launches >= 1 and torch.isfinite(got).all()
+    close = ((got - want).abs() < 1e-3).all(dim=-1).all(dim=-1)
+    assert float(close[mask].float().mean()) > 0.97
+    assert torch.equal(got[~mask], want[~mask])
+
+
+# The seventh slice on the card: batched mapping gives each sequence the
+# bits it gets alone, at tools/torch_bench_batch_mapping.py's worlds and
+# config (1,024 corner / 4,096 surface / 8,192 submap points, 32 keyframes).
+
+
+def _bench_tool():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
+                        "torch_bench_batch_mapping.py")
+    spec = importlib.util.spec_from_file_location("torch_bench_batch_mapping", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def _same_bits(got, want):
+    from rolo_tpu_torch.ops.pytree import tree_leaves
+
+    got, want = tree_leaves(got), tree_leaves(want)
+    return len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("bsz", [1, 2, 5])
+def test_batched_mapping_gives_each_instance_its_bits_on_card(cuda, bsz):
+    """backend_step (3 steps), extract_submap, knn_indices and
+    solve_pose_graph ("dense", "bcr") over B sequences, each instance
+    bit-equal to the same call alone, on the card."""
+    from rolo_tpu_torch.graph.solver import solve_pose_graph
+    from rolo_tpu_torch.mapping.backend import backend_step, init_backend
+    from rolo_tpu_torch.mapping.keyframes import extract_submap
+    from rolo_tpu_torch.ops.pytree import tree_index
+    from rolo_tpu_torch.pointcloud.cloud import PaddedCloud
+    from rolo_tpu_torch.voxel.knn import knn_indices
+
+    tool = _bench_tool()
+    cfg = tool.config()
+    st = cfg.static
+    worlds = [tool.world(100 + b, st.max_surf_points, st.max_corner_points) for b in range(bsz)]
+    batch = init_backend(cfg, cuda, batch=bsz)
+    singles = [init_backend(cfg, cuda) for _ in range(bsz)]
+    eye = torch.eye(3, device=cuda)
+    for s in range(3):
+        shift = np.array([(0.8 + 0.03 * b) * s for b in range(bsz)], np.float32)
+        corner = torch.tensor(np.stack([c - [x, 0, 0] for (c, _), x in zip(worlds, shift)]),
+                              dtype=torch.float32, device=cuda)
+        surf = torch.tensor(np.stack([w - [x, 0, 0] for (_, w), x in zip(worlds, shift)]),
+                            dtype=torch.float32, device=cuda)
+        guess = torch.tensor(np.stack([[x + 0.01 * s, 0.0, 0.0] for x in shift]),
+                             dtype=torch.float32, device=cuda)
+        cm = torch.ones(corner.shape[:2], dtype=torch.bool, device=cuda)
+        sm = torch.ones(surf.shape[:2], dtype=torch.bool, device=cuda)
+        batch, out = backend_step(batch, PaddedCloud(corner, cm), PaddedCloud(surf, sm),
+                                  PaddedCloud(surf, sm), eye.expand(bsz, 3, 3), guess, True,
+                                  0.5 * s, cfg)
+        for b in range(bsz):
+            sf = PaddedCloud(surf[b], sm[b])
+            singles[b], one = backend_step(singles[b], PaddedCloud(corner[b], cm[b]), sf, sf, eye,
+                                           guess[b], True, 0.5 * s, cfg)
+            assert _same_bits(tree_index(out, b), one), (s, b)
+            assert _same_bits(tree_index(batch, b), singles[b]), (s, b)
+    assert (batch.db.count == 3).all()
+
+    m = cfg.mapping
+    args = (m.surrounding_keyframe_search_radius, m.surrounding_keyframe_recency_sec,
+            m.surrounding_keyframe_max_nearby, st.max_submap_points, st.max_submap_points,
+            m.mapping_corner_leaf_size, m.mapping_surf_leaf_size)
+    subs = extract_submap(batch.db, batch.xyz, 1.5, *args)
+    for b in range(bsz):
+        alone = extract_submap(singles[b].db, singles[b].xyz, 1.5, *args)
+        assert all(torch.equal(x.xyz[b], y.xyz) and torch.equal(x.mask[b], y.mask)
+                   for x, y in zip(subs, alone)), b
+
+    query = subs[0].xyz[:, :600] + 0.05
+    idx = knn_indices(query, subs[0].mask[:, :600], subs[1].xyz, subs[1].mask, 5, 256)
+    for b in range(bsz):
+        alone = knn_indices(query[b], subs[0].mask[b, :600], subs[1].xyz[b], subs[1].mask[b], 5,
+                            256)
+        assert torch.equal(idx[b], alone), b
+
+    for method in ("dense", "bcr"):
+        sol = solve_pose_graph(batch.graph, batch.db.rot, batch.db.trans, batch.db.count,
+                               method=method)
+        for b in range(bsz):
+            one = singles[b]
+            alone = solve_pose_graph(one.graph, one.db.rot, one.db.trans, one.db.count,
+                                     method=method)
+            assert _same_bits(tree_index(sol, b), alone), (method, b)

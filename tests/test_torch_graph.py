@@ -238,3 +238,14 @@ def test_closed_form_jacobians_match_autodiff(scale):
     np.testing.assert_allclose(jj.numpy(), want_j.numpy(), atol=1e-9)
     if scale == 0.0:
         np.testing.assert_allclose(jj.numpy(), np.broadcast_to(np.eye(6), jj.shape), atol=1e-9)
+
+
+def test_inv3x3_blocks6_matches_reference():
+    rng = np.random.default_rng(8)
+    a = rng.normal(size=(40, 6, 6)).astype(np.float32)
+    m = np.einsum("kij,klj->kil", a, a) + 0.5 * np.eye(6, dtype=np.float32)
+    want = np.asarray(jsolver.inv3x3_blocks6(jnp.asarray(m)))
+    got = solver.inv3x3_blocks6(T(m)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(np.einsum("kij,kjl->kil", got, m),
+                               np.broadcast_to(np.eye(6), m.shape), atol=1e-3)

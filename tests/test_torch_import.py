@@ -1,12 +1,15 @@
 """The port runs where JAX and PyYAML do not exist: importing every module of
 it, its own config and chip_smoke.py, and running CPU scan_steps,
 backend_steps, a loop-closure pass, a prior cycle, ESKF fusion, a graph solve,
-three SlamSystem scans with a checkpoint and a restore, and the one-rank dry
-run of graft_entry (batched and point-split registration), must never import
-jax or yaml nor execute a file of the JAX package. Its config copy reads the
-same values as the reference's, and its state constructors default to the
-card."""
+three SlamSystem scans with a checkpoint and a restore, a batched mapping
+step, and the one-rank dry run of graft_entry (batched and point-split
+registration, batched mapping), must never import jax or yaml nor execute a
+file of the JAX package. Its config copy reads the same values as the
+reference's, its state constructors default to the card, and every
+subpackage exports the names its reference counterpart does."""
 
+import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -44,6 +47,15 @@ import rolo_tpu_torch.runtime.bagwriter, rolo_tpu_torch.runtime.viz
 import rolo_tpu_torch.cpp.host, rolo_tpu_torch.__main__
 import rolo_tpu_torch.filter.manifold, rolo_tpu_torch.registration.experimental
 import rolo_tpu_torch.parallel, rolo_tpu_torch.graft_entry
+# the subpackages' public surface, as the JAX package's README imports it
+from rolo_tpu_torch.mapping import backend_step, solve_graph_host
+import rolo_tpu_torch.frontend, rolo_tpu_torch.geometry, rolo_tpu_torch.graph
+import rolo_tpu_torch.loop, rolo_tpu_torch.mapping, rolo_tpu_torch.ops
+import rolo_tpu_torch.pointcloud, rolo_tpu_torch.prior, rolo_tpu_torch.sim, rolo_tpu_torch.voxel
+import importlib.util
+spec = importlib.util.spec_from_file_location("torch_bench_batch_mapping",
+                                              "tools/torch_bench_batch_mapping.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))  # module only; main() not run
 
 g = torch.Generator().manual_seed(0)
 n = 256
@@ -96,6 +108,15 @@ with tempfile.TemporaryDirectory() as tmp:
 assert torch.equal(again.odom_state.pose_trans, slam.odom_state.pose_trans)
 assert int(again.backend_state.db.count) == int(slam.backend_state.db.count) >= 1
 assert len(slam.times) == 3 and np.isfinite(slam.front_positions_np()).all()
+
+# the seventh slice: a batch of two back-end states, one mapping step
+from rolo_tpu_torch.ops.pytree import tree_index
+pair = init_backend(cfg, "cpu", batch=2)
+cloud2 = PaddedCloud(cloud.xyz.expand(2, -1, -1), cloud.mask.expand(2, -1))
+pair, pout = backend_step(pair, cloud2, cloud2, cloud2, out.pose_rot.expand(2, 3, 3),
+                          out.pose_trans.expand(2, 3), True, 0.0, cfg)
+pair = solve_graph_host(pair, cfg)
+assert pair.db.count.tolist() == [1, 1] and torch.equal(tree_index(pair, 0).xyz, pair.xyz[1])
 
 # the sixth slice: the dry run over a one-rank group (all three phases)
 from rolo_tpu_torch.graft_entry import dryrun_multichip
@@ -180,3 +201,36 @@ def test_state_constructors_default_to_the_card():
         init_backend(cfg)
     with pytest.raises((RuntimeError, AssertionError)):
         init_fusion(RoloConfig().filter)
+
+
+def _reference_exports():
+    """(subpackage, its __all__) for every subpackage of the JAX package, read
+    with ast: nothing of the JAX package is imported."""
+    root = os.path.join(REPO, "rolo_tpu")
+    out = []
+    for sub in sorted(os.listdir(root)):
+        init = os.path.join(root, sub, "__init__.py")
+        if not os.path.exists(init):
+            continue
+        tree = ast.parse(open(init).read())
+        names = [ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and any(getattr(t, "id", None) == "__all__" for t in node.targets)]
+        out.append((sub, names[0] if names else []))
+    return out
+
+
+@pytest.mark.parametrize("sub,names", _reference_exports(), ids=lambda v: v
+                         if isinstance(v, str) else "")
+def test_subpackage_exports_the_reference_names(sub, names):
+    """`from rolo_tpu_torch.<sub> import <name>` works for every name of the
+    reference subpackage's __all__, and each resolves to the port's own
+    object."""
+    assert names, f"rolo_tpu/{sub}/__init__.py has no __all__"
+    mod = importlib.import_module(f"rolo_tpu_torch.{sub}")
+    assert sorted(mod.__all__) == sorted(names)
+    for name in names:
+        obj = getattr(mod, name)
+        origin = getattr(obj, "__module__", None) or getattr(obj, "__name__", None)
+        if origin is not None:
+            assert origin.startswith("rolo_tpu_torch."), (name, origin)

@@ -277,3 +277,10 @@ def test_knn_moments_matches_reference_kernel(case):
     np.testing.assert_allclose(got[:, same], want[:, same], rtol=2e-5, atol=2e-3)
     assert np.abs(got[:, ~mask]).max(initial=0.0) == 0.0
 
+
+
+def test_sym3_add_matches_reference():
+    rng = np.random.default_rng(7)
+    s, t = (rng.normal(size=(2, 6, 33)).astype(np.float32) for _ in range(2))
+    want = np.asarray(jsym3.add(jnp.asarray(s), jnp.asarray(t)))
+    assert np.array_equal(sym3.add(T(s), T(t)).numpy(), want)
