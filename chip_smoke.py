@@ -45,7 +45,10 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      worse than the front-end's, both kernels' launch counters rose, and no
      scan dispatched more than one queued task. Prints the wall time per
      process_scan (synced at the fused-pose fetch; mapping and other scans
-     apart), scans/s, the stage timers and the tasks per scan. Then
+     apart), scans/s, the stage timers and the tasks per scan, and
+     solve_graph_host's synced ms at buckets 256-2,048 on the lap's final
+     state, loop and prior factors in the graph (the latency tool's
+     `solve_ms_by_bucket`). Then
      checkpoint -> fresh SlamSystem.restore -> the next scan: under torch's
      default algorithms the original and a restored system, and two
      restored systems, must give bit-equal poses; under deterministic
@@ -66,15 +69,23 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      GenericEKF predict + update_iterated within 1e-5 of the CPU's.
   9. batched offline mapping (`batch_mapping`): phase 5's frames as 16
      sequences of 15 scans, the front-end through odometry_batch, one
-     batched backend_step a step at the 0.15 s cadence, batched dense and
-     bcr solves and a batched solve_graph_host, every step and solve
-     bit-equal to the sequences run one at a time; keyframe, accuracy and
-     solve gates; mapped scans/s and solves/s batched and looped, and
+     batched backend_step a step at the 0.15 s cadence, batched dense, bcr
+     and pcg (chain and Jacobi preconditioners) solves and a batched
+     solve_graph_host, every step and solve bit-equal to the sequences run
+     one at a time; keyframe, accuracy and solve gates (pcg and bcr within
+     1e-4 m of dense); mapped scans/s and solves/s batched and looped, and
      solve_graph_host's ms at buckets 256-2,048.
+ 10. the measuring tools (`latency_and_pipeline`): tools/torch_bench_latency.py's
+     saturated and 10 Hz feeds over 40 scans of its sim (20 measured, no
+     warm pass), gated on 20 finite latencies a mode, no paced scan
+     started before its arrival, ATE < 1.0 m and both kernels launched;
+     then tools/torch_bench_pipeline.py at --warmup 10 --scans 20. Both
+     reports print as JSON lines.
 Then one JSON line lists each kernel: its launches in phase 3's main-path
 run (and in phase 5's, "launches_mapping", and per lap scan; in phase
 6's, "launches_runtime"; in phase 8's, "launches_parallel"; in phase 9's,
-"launches_batch_mapping"), and from phase
+"launches_batch_mapping"; in phase 10's latency passes,
+"launches_latency"), and from phase
 2 its worst max_abs_err and its
 ms / plain_ms / bound_ms summed over its cases (one call of each;
 library_ms only where every case has one; every case is also under
@@ -86,6 +97,7 @@ the last line is {"ok": true, "device": {...}}. Imports no JAX.
 from __future__ import annotations
 
 import collections
+import importlib.util
 import json
 import os
 import socket
@@ -1047,6 +1059,8 @@ MIN_SEQ_KEYFRAMES = 5
 KF_GATE_M = 0.25  # tools/bench_batch_mapping.py:150
 SOLVE_MOVE_M, DENSE_BCR_M = 0.05, 1e-4  # __graft_entry__.py:249-250
 SOLVE_BUCKETS = (256, 512, 1024, 2048)
+# phase 9's batched solves: "dense" first, the reference the others are held to
+SOLVE_METHODS = ("dense", "bcr", "pcg chain", "pcg jacobi")
 
 
 def _stack_clouds(clouds):
@@ -1059,14 +1073,15 @@ def batch_mapping(cfg: RoloConfig, frames, device):
     N_BATCH_SEQ sequences of SEQ_LEN consecutive scans; the front-end runs
     for all of them through odometry_batch, backend_step at the 0.15 s
     cadence as one batched call a step, then one batched solve_pose_graph
-    with "dense" and one with "bcr" over the first 64 keyframe slots (the
-    host solve's bucket), and one batched solve_graph_host. Gates, each
+    with each of SOLVE_METHODS ("dense", "bcr", "pcg" with the chain and
+    the Jacobi preconditioner) over the first 64 keyframe slots (the host
+    solve's bucket), and one batched solve_graph_host. Gates, each
     raising: (a) every step's states and outputs, and each solve, bit-equal
     to the same sequences stepped and solved one at a time; (b) at least
     MIN_SEQ_KEYFRAMES keyframes a sequence; (c) the mapped keyframes within
     KF_GATE_M of the truth in each sequence's first-scan frame; (d) no
-    keyframe moved more than SOLVE_MOVE_M by the solve, "dense" and "bcr"
-    within DENSE_BCR_M; (e) both kernels launched (by the front-end). Then
+    keyframe moved more than SOLVE_MOVE_M by the solve, every other method
+    within DENSE_BCR_M of "dense"; (e) both kernels launched (by the front-end). Then
     solve_graph_host's ms at each of SOLVE_BUCKETS on one sequence's
     state. Returns the kernels' launches over the phase."""
     st, reg, lc = cfg.static, cfg.registration, cfg.loop
@@ -1155,14 +1170,15 @@ def batch_mapping(cfg: RoloConfig, frames, device):
 
     bucket = 64
     sols, looped_sols = {}, {}
-    for method in ("dense", "bcr"):
+    for method in SOLVE_METHODS:
         def solve(state):
             g = state.graph
             g = g._replace(odom_rel_rot=g.odom_rel_rot[..., :bucket, :, :],
                            odom_rel_trans=g.odom_rel_trans[..., :bucket, :])
+            name, _, pre = method.partition(" ")
             return solve_pose_graph(g, state.db.rot[..., :bucket, :, :],
                                     state.db.trans[..., :bucket, :], state.db.count,
-                                    method=method)
+                                    method=name, preconditioner=pre or "chain")
         sols[method] = timed(f"{method} solve batched", lambda: solve(batch))
         looped_sols[method] = timed(f"{method} solve looped",
                                     lambda: [solve(s) for s in singles])
@@ -1172,8 +1188,8 @@ def batch_mapping(cfg: RoloConfig, frames, device):
                                      "solve alone")
     moved = max(float((sols[m].trans[b, :counts[b]] - batch.db.trans[b, :counts[b]]).norm(
         dim=-1).max()) for m in sols for b in range(N_BATCH_SEQ))
-    apart = max(float((sols["dense"].trans[b, :counts[b]] - sols["bcr"].trans[b, :counts[b]]
-                       ).abs().max()) for b in range(N_BATCH_SEQ))
+    apart = max(float((sols["dense"].trans[b, :counts[b]] - sols[m].trans[b, :counts[b]]
+                       ).abs().max()) for m in SOLVE_METHODS[1:] for b in range(N_BATCH_SEQ))
     batch = timed("solve_graph_host batched", lambda: solve_graph_host(batch, cfg))
     singles = timed("solve_graph_host looped",
                     lambda: [solve_graph_host(s, cfg) for s in singles])
@@ -1181,9 +1197,10 @@ def batch_mapping(cfg: RoloConfig, frames, device):
         if not _equal_fields(tree_index(batch, b), one):
             raise AssertionError(f"batched solve_graph_host: sequence {b} differs from its "
                                  "solve alone")
-    print(f"batch mapping (a), (d): dense, bcr and solve_graph_host over {N_BATCH_SEQ} graphs "
-          f"bit-equal to single solves; the solves moved a keyframe at most {moved:.3e} m "
-          f"(gate {SOLVE_MOVE_M}), dense and bcr {apart:.3e} m apart (gate {DENSE_BCR_M})")
+    print(f"batch mapping (a), (d): {', '.join(SOLVE_METHODS)} and solve_graph_host over "
+          f"{N_BATCH_SEQ} graphs bit-equal to single solves; the solves moved a keyframe at "
+          f"most {moved:.3e} m (gate {SOLVE_MOVE_M}), the others at most {apart:.3e} m from "
+          f"dense (gate {DENSE_BCR_M})")
     if not (moved < SOLVE_MOVE_M and apart < DENSE_BCR_M):
         raise AssertionError("batch mapping (d): the solves moved keyframes or disagree")
     sync()
@@ -1196,9 +1213,11 @@ def batch_mapping(cfg: RoloConfig, frames, device):
     print(f"batch mapping: mapped scans/s batched {mapped / times['backend_step batched']:.3f}, "
           f"looped {mapped / times['backend_step looped']:.3f}; graph solves/s batched dense "
           f"{N_BATCH_SEQ / times['dense solve batched']:.3f}, looped "
-          f"{N_BATCH_SEQ / times['dense solve looped']:.3f}; bcr "
-          f"{N_BATCH_SEQ / times['bcr solve batched']:.3f} / "
-          f"{N_BATCH_SEQ / times['bcr solve looped']:.3f}; solve_graph_host "
+          f"{N_BATCH_SEQ / times['dense solve looped']:.3f}; "
+          + "; ".join(f"{m} {N_BATCH_SEQ / times[f'{m} solve batched']:.3f} / "
+                      f"{N_BATCH_SEQ / times[f'{m} solve looped']:.3f}"
+                      for m in SOLVE_METHODS[1:])
+          + "; solve_graph_host "
           f"{N_BATCH_SEQ / times['solve_graph_host batched']:.3f} / "
           f"{N_BATCH_SEQ / times['solve_graph_host looped']:.3f}; launches {launches}")
     print(f"batch mapping: phase 9 steps wall s {json.dumps({n: round(t, 3) for n, t in times.items()})}"
@@ -1220,6 +1239,65 @@ def batch_mapping(cfg: RoloConfig, frames, device):
         bucket_ms[hint] = round(statistics.median(ms), 2)
     print(f"batch mapping: solve_graph_host synced ms by bucket (count {int(one.db.count)}, "
           f"median of 3) {json.dumps(bucket_ms)}")
+    return launches
+
+
+def _tool(name: str):
+    """tools/<name>.py as a module (the tools are scripts, not a package)."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tools", f"{name}.py"))
+    module = sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+N_LATENCY = 40  # phase 10: the latency tool's first 20 scans run unpaced, 20 are measured
+N_PIPE_WARMUP, N_PIPE = 10, 20
+LATENCY_ATE_M = 1.0
+
+
+def latency_and_pipeline(device):
+    """Phase 10: the measuring tools on the card. The latency tool's
+    `measure` over its own sim at N_LATENCY scans, without its warm pass
+    (the earlier phases have warmed the process) and without bucket timings
+    (phase 6 has them): the saturated feed, then the 10 Hz feed, each on a
+    fresh SlamSystem(RoloConfig()). Raises unless each mode measured
+    N_LATENCY - WARMUP finite latencies, no 10 Hz scan started before its
+    arrival, each pass's ATE is finite and below LATENCY_ATE_M, and both
+    kernels launched. Then the pipeline tool at --warmup N_PIPE_WARMUP
+    --scans N_PIPE. Prints both reports as JSON lines; returns the kernels'
+    launches over the latency passes."""
+    latency, pipeline = _tool("torch_bench_latency"), _tool("torch_bench_pipeline")
+    sim = latency.sim_config(N_LATENCY)
+    frames = list(generate_sequence(sim, device))
+    torch.cuda.synchronize()
+    keyed_matmul.launches = 0
+    knn_moments.launches = 0
+    t0 = time.perf_counter()
+    report, sat, rt = latency.measure(frames, RoloConfig(), device, warm=False, buckets=(),
+                                      n_cols=sim.n_cols)
+    torch.cuda.synchronize()
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    print(f"latency: two feed modes over {N_LATENCY} scans in {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}")
+    print(json.dumps(report))
+    want = N_LATENCY - latency.WARMUP
+    for mode, d in (("saturated", sat), ("10 Hz", rt)):
+        if len(d.lat_all) != want or not np.isfinite(d.lat_all).all():
+            raise AssertionError(f"latency ({mode}): {len(d.lat_all)} measured scans, want "
+                                 f"{want} finite latencies")
+        if not (np.isfinite(d.ate_rmse) and d.ate_rmse < LATENCY_ATE_M):
+            raise AssertionError(f"latency ({mode}): ATE {d.ate_rmse} m (gate {LATENCY_ATE_M})")
+    if rt.early_starts:
+        raise AssertionError(f"latency: {rt.early_starts} 10 Hz scans started before arrival")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched in phase 10")
+    psim = pipeline.sim_config(N_PIPE_WARMUP + N_PIPE)
+    t0 = time.perf_counter()
+    out = pipeline.run(list(generate_sequence(psim, device)), pipeline.config(), N_PIPE_WARMUP,
+                       device=device)
+    print(f"pipeline: {N_PIPE_WARMUP} + {N_PIPE} scans in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps(out))
     return launches
 
 
@@ -1269,6 +1347,13 @@ def main() -> int:
     print(f"phase 5: {time.perf_counter() - t0:.1f} s wall")
     t0 = time.perf_counter()
     slam, runtime_launches = runtime_lap(cfg, map_frames[:N_MAP])
+    st = slam.backend_state
+    bucket_ms = _tool("torch_bench_latency").solve_ms_by_bucket(st, cfg)
+    print(f"runtime: solve_graph_host synced ms by bucket on the lap's final state "
+          f"({int(st.db.count)} keyframes, {int(st.graph.loops.count)} loop / "
+          f"{int(st.graph.priors.count)} prior factors; one untimed call, then the mean of 3) "
+          f"{json.dumps(bucket_ms)}")
+    del st
     restore_check(slam, map_frames[N_MAP])
     db = slam.backend_state.db
     n_kf = int(db.count)
@@ -1287,6 +1372,9 @@ def main() -> int:
     batch_launches = batch_mapping(cfg, map_frames[:N_BATCH_SEQ * SEQ_LEN], device)
     print(f"phase 9: {time.perf_counter() - t0:.1f} s wall")
     del map_frames
+    t0 = time.perf_counter()
+    latency_launches = latency_and_pipeline(device)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s wall")
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
@@ -1295,7 +1383,8 @@ def main() -> int:
          "launches_runtime": runtime_launches[name],
          "launches_per_runtime_scan": runtime_launches[name] / N_MAP,
          "launches_parallel": parallel_launches[name],
-         "launches_batch_mapping": batch_launches[name], **summary[name]}
+         "launches_batch_mapping": batch_launches[name],
+         "launches_latency": latency_launches[name], **summary[name]}
         for name in KERNELS]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(smi)

@@ -21,12 +21,13 @@ The `.at[].add` scatter sums become fixed-order segment sums
 gives the same bits each time it runs.
 
 A graph, its poses and its count may lead with [B]: B independent graphs
-solved at once ("bcr" and "dense"; the reference under `vmap`), each with
-its own Gauss-Newton stop. Instance b's poses are segments b * K + i of one
-segment sum, the small products are `small_matmul`, chi^2 a two-stage
-`fixed_sum`, and the Cholesky factorizations and the Woodbury system's
-large products one call per instance: a batch gives each graph the bits it
-gets alone.
+solved at once (every method; the reference under `vmap`), each with its
+own Gauss-Newton stop, and with "pcg" its own CG stop. Instance b's poses
+are segments b * K + i of one segment sum, the small products are
+`small_matmul`, chi^2 and the CG dot products two-stage `fixed_sum`s, and
+the Cholesky factorizations, the Woodbury system's large products and the
+Jacobi preconditioner's inverse one call per instance: a batch gives each
+graph the bits it gets alone.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from ..geometry import se3, so3
 from ..geometry.se3 import SE3
 from ..ops.linalg import (cholesky_solve_unrolled_mat, each, fixed_sum, inv_psd_unrolled,
                           small_matmul as mm)
+from ..ops.pytree import tree_map
 from ..ops.segment import Segments, segment_sum, segments
 from .factors import FIRST_PRIOR_VARIANCES, ODOM_VARIANCES, BetweenFactors, PoseGraph
 
@@ -138,6 +140,18 @@ def _take_pose(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, idx.dim() - 1, index)
 
 
+def _each_on_cpu(fn, lead, *args):
+    """fn(*args) for args leading with the graphs' batch dims `lead`; on the
+    CPU one call per instance (`ops.linalg.each`). torch's CPU kernels take
+    sin, cos and atan2 in SIMD lanes and a tensor's remainder in scalar code,
+    which rounds otherwise, so there an element's bits would follow the
+    batch's size; on the card every element takes the same code."""
+    if not lead or args[0].device.type != "cpu":
+        return fn(*args)
+    out = each(fn, *(a.reshape(-1, *a.shape[len(lead):]) for a in args))
+    return tree_map(lambda t: t.reshape(*lead, *t.shape[1:]), out)
+
+
 def _instance_offsets(lead, size: int, device) -> torch.Tensor:
     """b * size for each instance b of the batch dims `lead`, shaped [*lead, 1]."""
     return (torch.arange(math.prod(lead), device=device) * size).reshape(*lead, 1)
@@ -151,12 +165,14 @@ def _linearize(graph: PoseGraph, rot, trans, count) -> FactorBlocks:
     idx = torch.arange(k, device=dev)
     odom_valid = (idx >= 1) & (idx < count)
     prev = torch.clamp(idx - 1, min=0)
-    res_o, ji_o, jj_o = _res_and_jac(rot[..., prev, :, :], trans[..., prev, :], rot, trans,
-                                     graph.odom_rel_rot, graph.odom_rel_trans)
+    res_o, ji_o, jj_o = _each_on_cpu(_res_and_jac, lead, rot[..., prev, :, :],
+                                     trans[..., prev, :], rot, trans, graph.odom_rel_rot,
+                                     graph.odom_rel_trans)
     info_o = (1.0 / torch.tensor(ODOM_VARIANCES, dtype=dtype, device=dev)).expand(*lead, k, 6)
 
     # first-pose prior: a between factor from a fixed identity anchor
-    res_p, _, jj_p = _res_and_jac(torch.eye(3, dtype=dtype, device=dev).expand(*lead, 1, 3, 3),
+    res_p, _, jj_p = _each_on_cpu(_res_and_jac, lead,
+                                  torch.eye(3, dtype=dtype, device=dev).expand(*lead, 1, 3, 3),
                                   trans.new_zeros(*lead, 1, 3), rot[..., :1, :, :],
                                   trans[..., :1, :], graph.first_rot[..., None, :, :],
                                   graph.first_trans[..., None, :])
@@ -165,9 +181,9 @@ def _linearize(graph: PoseGraph, rot, trans, count) -> FactorBlocks:
 
     def between_blocks(f: BetweenFactors):
         fi, fj = f.i.long(), f.j.long()
-        res_b, ji_b, jj_b = _res_and_jac(_take_pose(rot, fi), _take_pose(trans, fi),
-                                         _take_pose(rot, fj), _take_pose(trans, fj), f.rel_rot,
-                                         f.rel_trans)
+        res_b, ji_b, jj_b = _each_on_cpu(_res_and_jac, lead, _take_pose(rot, fi),
+                                         _take_pose(trans, fi), _take_pose(rot, fj),
+                                         _take_pose(trans, fj), f.rel_rot, f.rel_trans)
         inv_var = 1.0 / f.noise_var
         r2 = torch.sum(res_b * res_b * inv_var, dim=-1)
         c2 = f.robust_c ** 2
@@ -415,45 +431,64 @@ def _bcr_step(blocks: FactorBlocks, k: int, damping, active, g) -> torch.Tensor:
 
 
 def _pcg(blocks: FactorBlocks, k: int, damping: float, active, g, cg_iterations: int,
-         cg_tol: float, preconditioner: str) -> torch.Tensor:
-    """PCG for (H + damping I) x = -g from x = 0, stopping when r.z drops
-    below cg_tol^2 of its initial value (solver.py:472-508); one graph."""
+         cg_tol: float, preconditioner: str):
+    """PCG for (H + damping I) x = -g from x = 0 (solver.py:472-508), over
+    the graphs' batch dims as `jax.vmap` of the reference's while_loop runs
+    it: each graph keeps its own CG state and stops when its r.z drops below
+    cg_tol^2 of its own initial value; a stopped graph's state is frozen by
+    selection while the loop runs on for the others, with one host read per
+    iteration. The dot products are `fixed_sum`s and the Jacobi inverse one
+    call per graph, so a batch gives each graph its bits alone. Returns x
+    [..., K, 6] and the CG iterations each graph took [...]."""
     eye6 = torch.eye(6, dtype=g.dtype, device=g.device)
     diag = _hessian_diag_blocks(blocks, k) + damping * eye6
     if preconditioner == "chain":
         # the reference's block-Thomas factorization and its three scans solve
         # exactly this block-tridiagonal system; cyclic reduction solves it in
         # O(log K) batched levels instead of K sequential steps
-        offdiag = _chain_offdiag(blocks, k)
+        offdiag = _chain_offdiag(blocks, k)[..., 1:, :, :]
 
         def precond(r):
-            return _bcr_solve(diag, offdiag[1:], r[:, :, None])[..., 0]
+            return _bcr_solve(diag, offdiag, r[..., None])[..., 0]
     elif preconditioner == "jacobi":
-        pinv = torch.linalg.inv(diag)
+        lead = diag.shape[:-3]
+        pinv = each(torch.linalg.inv, diag.reshape(-1, k, 6, 6)).reshape(*lead, k, 6, 6)
 
         def precond(r):
             return mm(pinv, r[..., None])[..., 0]
     else:
         raise ValueError(f"unknown preconditioner {preconditioner!r}")
 
+    def dot(u, v):
+        return fixed_sum((u * v).flatten(-2))
+
     b = -g * active
     x = torch.zeros_like(b)
     r = b
-    z = precond(r) * active
-    p = z
-    rz0 = rz = torch.sum(r * z)
+    p = precond(r) * active
+    rz = dot(r, p)
+    floor = cg_tol * cg_tol * rz
+    run = rz > floor
+    steps = torch.zeros(run.shape, dtype=torch.int32, device=run.device)
     for _ in range(cg_iterations):
-        if not bool(rz > cg_tol * cg_tol * rz0):
+        if not bool(run.any()):
             break
         ap = _matvec(blocks, p, damping) * active
-        alpha = rz / torch.clamp(torch.sum(p * ap), min=1e-30)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = precond(r) * active
-        rz_new = torch.sum(r * z)
-        p = z + rz_new / torch.clamp(rz, min=1e-30) * p
-        rz = rz_new
-    return x
+        alpha = (rz / torch.clamp(dot(p, ap), min=1e-30))[..., None, None]
+        r_new = r - alpha * ap
+        z = precond(r_new) * active
+        rz_new = dot(r_new, z)
+        beta = (rz_new / torch.clamp(rz, min=1e-30))[..., None, None]
+        # a stopped graph keeps its state: selection, not a 0/1 product
+        # (0 * inf is NaN, and r.z may reach 0)
+        keep = run[..., None, None]
+        x = torch.where(keep, x + alpha * p, x)
+        r = torch.where(keep, r_new, r)
+        p = torch.where(keep, z + beta * p, p)
+        rz = torch.where(run, rz_new, rz)
+        steps = steps + run.to(torch.int32)
+        run = rz > floor
+    return x, steps
 
 
 def solve_pose_graph(graph: PoseGraph, rot: torch.Tensor, trans: torch.Tensor, count,
@@ -469,14 +504,11 @@ def solve_pose_graph(graph: PoseGraph, rot: torch.Tensor, trans: torch.Tensor, c
     `runtime.platform.configure_precision`).
 
     rot [B, K, 3, 3] (with trans, count and every graph field leading with
-    [B]) solves B graphs with "bcr" or "dense": each stops on its own test,
-    the loop runs while any has not, with one host read per iteration, and
-    the solution's fields lead with [B]."""
+    [B]) solves B graphs with any method: each stops on its own GN (and CG)
+    test, the loops run while any has not, with one host read per
+    iteration, and the solution's fields lead with [B]."""
     if method not in ("bcr", "dense", "pcg"):
         raise ValueError(f"unknown method {method!r}")
-    if method == "pcg" and rot.dim() > 3:
-        raise ValueError("method 'pcg' solves one graph; a batch of graphs takes 'bcr' or "
-                         "'dense'")
     lead, k = rot.shape[:-3], rot.shape[-3]
     dev = trans.device
     count = torch.as_tensor(count, device=dev)
@@ -504,8 +536,8 @@ def solve_pose_graph(graph: PoseGraph, rot: torch.Tensor, trans: torch.Tensor, c
         elif method == "bcr":
             x = _bcr_step(blocks, k, damping, active, g)
         else:
-            x = _pcg(blocks, k, damping, active, g, cg_iterations, cg_tol, preconditioner)
-        new = SE3(rot, trans).compose(se3.exp(x * active))
+            x, _ = _pcg(blocks, k, damping, active, g, cg_iterations, cg_tol, preconditioner)
+        new = SE3(rot, trans).compose(_each_on_cpu(se3.exp, lead, x * active))
         keep = done[..., None, None]
         rot = torch.where(keep[..., None], rot, new.rot)
         trans = torch.where(keep, trans, new.trans)

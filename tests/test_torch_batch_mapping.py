@@ -4,8 +4,10 @@ __graft_entry__.py's small mapping config (3 sequences x 3 steps through
 tools/bench_batch_mapping.py's synthetic worlds), every
 instance of a batch bit-equal to its unbatched run (also while one instance
 has no keyframe and the others have), batched solve_pose_graph against
-single solves and the reference's vmapped dense solve, and the batched host
-solve's bucket and its keyframe-less instance."""
+single solves and the reference's vmapped dense solve, batched "pcg"
+(chain and jacobi) against the reference's vmapped pcg, each graph with its
+own CG stop, and the batched host solve's bucket and its keyframe-less
+instance."""
 
 import dataclasses
 import functools
@@ -27,6 +29,8 @@ from rolo_tpu.graph.solver import solve_pose_graph as jsolve_pose_graph
 from rolo_tpu.mapping import backend as jbk
 from rolo_tpu.pointcloud.cloud import PaddedCloud as JCloud
 
+from rolo_tpu_torch.graph import solver
+from rolo_tpu_torch.graph.factors import BetweenFactors, PoseGraph
 from rolo_tpu_torch.graph.solver import solve_pose_graph
 from rolo_tpu_torch.mapping import backend as bk
 from rolo_tpu_torch.ops.pytree import tree_index, tree_leaves, tree_stack
@@ -234,11 +238,136 @@ def _jax_dense_solve():
     return np.asarray(solve(js.graph, js.db.rot, js.db.trans, js.db.count).trans)
 
 
-def test_batched_pcg_solve_raises():
-    _, states = _port_batched()
-    with pytest.raises(ValueError, match="pcg"):
-        solve_pose_graph(states.graph, states.db.rot, states.db.trans, states.db.count,
-                         method="pcg")
+PCG_K, PCG_CAP = 64, 16  # the bag fixture's keyframe and factor capacities
+PCG_COUNTS = (40, 25, 1)
+POSE_TOL = 2e-4  # tests/test_torch_graph.py's pcg parity tolerance
+
+
+def _rodrigues(w):
+    w = np.asarray(w, np.float64)
+    th = np.linalg.norm(w)
+    k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / max(th, 1e-12)
+    return np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+
+
+@functools.lru_cache(maxsize=None)
+def _pcg_graphs():
+    """Three graphs at the bag fixture's capacities, as numpy: 40 poses
+    round a circle with a robust loop factor and a prior factor, an
+    odometry-only chain of 25, and a graph of one pose. Noisy odometry and
+    a drifted estimate; unused slots hold the identity."""
+    rng = np.random.default_rng(8)
+    odom_rot = np.tile(np.eye(3), (B, PCG_K, 1, 1))
+    odom_trans = np.zeros((B, PCG_K, 3))
+    est_rot = np.tile(np.eye(3), (B, PCG_K, 1, 1))
+    est_trans = np.zeros((B, PCG_K, 3))
+    factors = []
+    for b, n in enumerate(PCG_COUNTS):
+        step = _rodrigues([0.0, 0.0, 2 * np.pi / max(n, 2)]), np.array([2.0, 0.0, 0.0])
+        true = [(np.eye(3), np.zeros(3))]
+        for i in range(1, n):
+            r, t = true[-1]
+            true.append((r @ step[0], r @ step[1] + t))
+            odom_rot[b, i] = step[0]
+            odom_trans[b, i] = step[1] + rng.normal(0, 0.03, 3)
+            pr, pt = _rodrigues(rng.normal(0, 0.01, 3)), rng.normal(0, 0.05, 3)
+            r0, t0 = est_rot[b, i - 1], est_trans[b, i - 1]
+            r1, t1 = r0 @ odom_rot[b, i], r0 @ odom_trans[b, i] + t0
+            est_rot[b, i], est_trans[b, i] = r1 @ pr, r1 @ pt + t1
+
+        def rel(i, j):
+            (ri, ti), (rj, tj) = true[i], true[j]
+            return ri.T @ rj, ri.T @ (tj - ti)
+
+        factors.append({"loop": [(n - 1, 0, *rel(n - 1, 0), 1e-4, 0.5)],
+                        "prior": [(2, 5, *rel(2, 5), 1e-3, None)]} if b == 0 else {})
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    return f32(odom_rot), f32(odom_trans), f32(est_rot), f32(est_trans), factors
+
+
+@functools.lru_cache(maxsize=None)
+def _pcg_jax_inputs():
+    from rolo_tpu.graph import add_between as jadd_between, empty_graph as jempty_graph
+
+    odom_rot, odom_trans, est_rot, est_trans, factors = _pcg_graphs()
+    graphs = []
+    for b in range(B):
+        g = jempty_graph(PCG_K, PCG_CAP, PCG_CAP)
+        g = g._replace(odom_rel_rot=jnp.asarray(odom_rot[b]),
+                       odom_rel_trans=jnp.asarray(odom_trans[b]))
+        for kind, field in (("loop", "loops"), ("prior", "priors")):
+            store = getattr(g, field)
+            for i, j, r, t, var, c in factors[b].get(kind, ()):
+                store = jadd_between(store, i, j, jnp.asarray(r, jnp.float32),
+                                     jnp.asarray(t, jnp.float32), jnp.full(6, var, jnp.float32),
+                                     robust_c=None if c is None else jnp.float32(c))
+            g = g._replace(**{field: store})
+        graphs.append(g)
+    return (jtu.tree_map(lambda *xs: jnp.stack(xs), *graphs), jnp.asarray(est_rot),
+            jnp.asarray(est_trans), jnp.asarray(PCG_COUNTS, jnp.int32))
+
+
+def _pcg_port_inputs():
+    """The reference's graphs carried into the port, as [B] tensors."""
+    graph, rot, trans, count = _pcg_jax_inputs()
+    between = [BetweenFactors(*(T(np.asarray(x)) for x in f)) for f in graph[4:]]
+    return (PoseGraph(*(T(np.asarray(x)) for x in graph[:4]), *between), T(np.asarray(rot)),
+            T(np.asarray(trans)), T(np.asarray(count)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_pcg_solve(preconditioner):
+    solve = jax.jit(jax.vmap(lambda g, r, t, c: jsolve_pose_graph(
+        g, r, t, c, method="pcg", preconditioner=preconditioner)))
+    sol = solve(*_pcg_jax_inputs())
+    return np.asarray(sol.rot), np.asarray(sol.trans)
+
+
+@pytest.mark.parametrize("preconditioner", ["chain", "jacobi"])
+def test_batched_pcg_solve_matches_vmapped_reference(preconditioner):
+    """Batched "pcg" on three graphs (loops and priors, odometry only, one
+    pose) against `jax.vmap` of the reference's pcg solve, each instance
+    bit-equal to its solve alone."""
+    graph, rot, trans, count = _pcg_port_inputs()
+    sol = solve_pose_graph(graph, rot, trans, count, method="pcg",
+                           preconditioner=preconditioner)
+    want_rot, want_trans = _jax_pcg_solve(preconditioner)
+    np.testing.assert_allclose(sol.trans.numpy(), want_trans, atol=POSE_TOL)
+    np.testing.assert_allclose(sol.rot.numpy(), want_rot, atol=POSE_TOL)
+    for b in range(B):
+        one = tree_index((graph, rot, trans, count), b)
+        _same_bits(tree_index(sol, b), solve_pose_graph(*one, method="pcg",
+                                                        preconditioner=preconditioner))
+    # the loop factor pulls graph 0's last pose back to one 2 m step from
+    # its first (the drifted estimate: 2.5 m); the odometry-only graph's
+    # inactive slots and the one-pose graph stay where they were
+    gap = np.linalg.norm(sol.trans[0, PCG_COUNTS[0] - 1].numpy() - sol.trans[0, 0].numpy())
+    assert abs(gap - 2.0) < 0.1
+    assert torch.equal(sol.trans[1, PCG_COUNTS[1]:], trans[1, PCG_COUNTS[1]:])
+    assert torch.equal(sol.trans[2], trans[2])
+
+
+@pytest.mark.parametrize("preconditioner", ["chain", "jacobi"])
+def test_batched_cg_stops_each_graph_on_its_own_test(preconditioner):
+    """One CG solve over the three graphs' first linearization: each takes
+    its own number of iterations (the one-pose graph none), and each
+    instance's step has the bits of its CG run alone, the stopped ones
+    frozen while the loop runs on."""
+    graph, rot, trans, count = _pcg_port_inputs()
+    k = PCG_K
+
+    def cg(g, r, t, c):
+        blocks = solver._linearize(g, r, t, c)
+        active = (torch.arange(k) < torch.as_tensor(c)[..., None])[..., None]
+        return solver._pcg(blocks, k, 1e-6, active, solver._gradient(blocks, k), 1000, 1e-8,
+                           preconditioner)
+
+    x, steps = cg(graph, rot, trans, count)
+    assert len(set(steps.tolist())) == B and steps[2] == 0, steps
+    for b in range(B):
+        x1, steps1 = cg(*tree_index((graph, rot, trans, count), b))
+        assert torch.equal(x[b], x1) and torch.equal(steps[b], steps1)
+    assert torch.isfinite(x).all()
 
 
 def test_batched_host_solve_takes_the_largest_count_and_spares_an_empty_instance(monkeypatch):

@@ -3,8 +3,8 @@ it, its own config and chip_smoke.py, and running CPU scan_steps,
 backend_steps, a loop-closure pass, a prior cycle, ESKF fusion, a graph solve,
 three SlamSystem scans with a checkpoint and a restore, a batched mapping
 step, and the one-rank dry run of graft_entry (batched and point-split
-registration, batched mapping), must never import jax or yaml nor execute a
-file of the JAX package. Its config copy reads the same values as the
+registration, batched mapping), and loading the port's tools, must never
+import jax or yaml nor execute a file of the JAX package. Its config copy reads the same values as the
 reference's, its state constructors default to the card, and every
 subpackage exports the names its reference counterpart does."""
 
@@ -53,9 +53,11 @@ import rolo_tpu_torch.frontend, rolo_tpu_torch.geometry, rolo_tpu_torch.graph
 import rolo_tpu_torch.loop, rolo_tpu_torch.mapping, rolo_tpu_torch.ops
 import rolo_tpu_torch.pointcloud, rolo_tpu_torch.prior, rolo_tpu_torch.sim, rolo_tpu_torch.voxel
 import importlib.util
-spec = importlib.util.spec_from_file_location("torch_bench_batch_mapping",
-                                              "tools/torch_bench_batch_mapping.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))  # module only; main() not run
+for tool in ("torch_bench_batch_mapping", "torch_bench_latency", "torch_bench_pipeline",
+             "torch_ab_study", "torch_ab_defaults"):
+    spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
+    module = sys.modules[tool] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)  # module only; main() not run
 
 g = torch.Generator().manual_seed(0)
 n = 256
