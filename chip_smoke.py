@@ -81,11 +81,22 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      started before its arrival, ATE < 1.0 m and both kernels launched;
      then tools/torch_bench_pipeline.py at --warmup 10 --scans 20. Both
      reports print as JSON lines.
+ 11. the stage profilers and diagnostics (`profiles_and_diagnostics`):
+     tools/torch_profile_{frontend,stages,build,backend,projection}.py at
+     RoloConfig() widths with few calls a row (each stage row: wall ms, and
+     one traced call's kernel ms, launches, host waits and top kernels),
+     tools/torch_diag_{dense_solve,graphsolve}.py at buckets 256 and 2,048
+     (graphsolve's pcg at 256 only),
+     torch_diag_ct.py on 4 bench pairs and torch_diag_prior.py over 20
+     scans; every row finite, both kernels launched by the profilers, bcr
+     and pcg within 1 mm of a finite dense solution and within a fifth of
+     their start's error, the prior funnels narrowing to the run's prior
+     factors. Each report prints as a JSON line.
 Then one JSON line lists each kernel: its launches in phase 3's main-path
 run (and in phase 5's, "launches_mapping", and per lap scan; in phase
 6's, "launches_runtime"; in phase 8's, "launches_parallel"; in phase 9's,
 "launches_batch_mapping"; in phase 10's latency passes,
-"launches_latency"), and from phase
+"launches_latency"; in phase 11's profilers, "launches_profile"), and from phase
 2 its worst max_abs_err and its
 ms / plain_ms / bound_ms summed over its cases (one call of each;
 library_ms only where every case has one; every case is also under
@@ -112,6 +123,7 @@ import numpy as np
 import torch
 
 from rolo_tpu_torch import bench
+from rolo_tpu_torch.bench import graph_ms
 from rolo_tpu_torch.config import RoloConfig
 from rolo_tpu_torch.filter import manifold
 from rolo_tpu_torch.filter.fusion import (fused_pose, init_fusion, on_front_odometry,
@@ -144,7 +156,7 @@ from rolo_tpu_torch.runtime.cycles import ground_update, prior_cycle
 from rolo_tpu_torch.runtime.dataset import run_frames
 from rolo_tpu_torch.runtime.platform import configure_precision, nvidia_smi_name_power
 from rolo_tpu_torch.runtime.slam import SlamSystem
-from rolo_tpu_torch.sim.dataset import generate_sequence
+from rolo_tpu_torch.sim.dataset import generate_sequence, ground_map_points, make_scene
 from rolo_tpu_torch.voxel.knn import estimate_cov6, knn_indices, moment_table
 from rolo_tpu_torch.voxel.voxelmap import build_voxel_map, polar_coord, uniform_coord
 
@@ -181,33 +193,6 @@ def cuda_ms(fn, reps: int) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def graph_ms(fn, calls: int = 10, reps: int = 5) -> float:
-    """Warm median device milliseconds per fn() call: `calls` calls captured
-    in one CUDA graph and replayed between two events, so the host's Python
-    and launch overhead is not in the time."""
-    fn()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -1301,6 +1286,125 @@ def latency_and_pipeline(device):
     return launches
 
 
+PROFILE_ITERS = 3  # phase 11: timed calls of each profiler row (and one traced)
+DIAG_BUCKETS = (256, 2048)
+# graphsolve's pcg only here: one pcg solve of its big graph takes ~51 s at 2,048
+PCG_BUCKETS = (256,)
+N_CT_PAIRS, N_PRIOR_SCANS = 4, 20
+# phase 11: the solve diagnostics' methods against dense, where dense is
+# finite (the f32 dense solve of diag_dense_solve's 1.4 km chain diverges at
+# K = 2,048, in the JAX package from K = 1,024 with bcr as well)
+SOLVE_AGREE_M = 1e-3
+
+
+def _finite_rows(tool: str, rows: dict, keys) -> None:
+    bad = {name: {k: row.get(k) for k in keys} for name, row in rows.items()
+           if not all(k in row and np.isfinite(row[k]) for k in keys)}
+    if bad:
+        raise AssertionError(f"{tool}: rows without finite {keys}: {bad}")
+
+
+def profiles_and_diagnostics(device):
+    """Phase 11: the stage profilers at RoloConfig() widths with
+    PROFILE_ITERS calls a row (the front-end's at 8,192 feature slots with
+    5,500 valid and 8,192 voxels; the registration stages at B = 16; the
+    build and lookup rows; the back-end's 80 keyframes; the projection),
+    the solve diagnostics at DIAG_BUCKETS (one timed solve a method; pcg at
+    PCG_BUCKETS only), the
+    CT variants on N_CT_PAIRS bench pairs and the prior chain over
+    N_PRIOR_SCANS scans (held to prior_cycle at every tick). Each report
+    prints as a JSON line. Raises unless every row is finite (a stage row's
+    wall and kernel ms, launches and host waits; a build row's ms and
+    device ms; the solve diagnostics' times and the bcr / pcg solutions),
+    both kernels launched in the profilers, bcr and pcg agree with a finite
+    dense solution within SOLVE_AGREE_M, pcg (and a finite dense) solve ends
+    within a fifth of its start's error (tests/test_graph.py's scale
+    assertion), every CT variant's estimates are finite, and the prior
+    funnels narrow gate by gate and end at the run's prior factors. Returns
+    the kernels' launches over the profilers."""
+    cfg = RoloConfig()
+    stage_keys = ("wall_ms", "kernel_ms", "device_launches", "host_waits")
+    torch.cuda.synchronize()
+    keyed_matmul.launches = 0
+    knn_moments.launches = 0
+    t0 = time.perf_counter()
+    front = _tool("torch_profile_frontend").profile(device, cfg, iters=PROFILE_ITERS)
+    stages = _tool("torch_profile_stages").profile(device, iters=PROFILE_ITERS)
+    build = _tool("torch_profile_build").profile(device, iters=PROFILE_ITERS)
+    back = _tool("torch_profile_backend").profile(device, cfg, iters=1)
+    proj = _tool("torch_profile_projection").profile(device, cfg, iters=PROFILE_ITERS)
+    torch.cuda.synchronize()
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    print(f"profilers: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    for name, report in (("torch_profile_frontend", front), ("torch_profile_stages", stages),
+                         ("torch_profile_backend", back), ("torch_profile_projection", proj)):
+        print(json.dumps({"tool": name, **report}))
+        _finite_rows(name, report["stages"], stage_keys)
+    print(json.dumps({"tool": "torch_profile_build", **build}))
+    _finite_rows("torch_profile_build", build["rows"], ("ms",))
+    _finite_rows("torch_profile_build", {k: r for k, r in build["rows"].items()
+                                         if "keyed_matmul" in k or "searchsorted" in k},
+                 ("device_ms",))
+    if front["shapes"] != {"n": 8192, "valid": 5500, "voxel_capacity": 8192}:
+        raise AssertionError(f"torch_profile_frontend shapes {front['shapes']}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the profilers")
+
+    t1 = time.perf_counter()
+    dense, graphsolve = _tool("torch_diag_dense_solve"), _tool("torch_diag_graphsolve")
+    big = graphsolve.big_graph()
+    for k in DIAG_BUCKETS:
+        row, _, _ = dense.decompose(k, device, reps=1)
+        dense.free(device)
+        print(json.dumps({"tool": "torch_diag_dense_solve", **row}))
+        _finite_rows("torch_diag_dense_solve", {k: row},
+                     [key for key in row if key.startswith("ms_")] + ["chi2_bcr"])
+        if np.isfinite(row["chi2_dense"]) and not (row["max_trans_diff_bcr_vs_dense_m"]
+                                                   <= SOLVE_AGREE_M):
+            raise AssertionError(f"dense solve diagnostic at K={k}: bcr "
+                                 f"{row['max_trans_diff_bcr_vs_dense_m']} m from dense")
+        methods = graphsolve.METHODS if k in PCG_BUCKETS else ("dense",)
+        rows, sols = graphsolve.compare(k, big, device, reps=1, methods=methods, warm=False)
+        gap = float((sols["pcg"].trans - sols["dense"].trans).abs().max()) if "pcg" in sols \
+            else None
+        print(json.dumps({"tool": "torch_diag_graphsolve", "k": k, "rows": rows,
+                          "max_trans_diff_pcg_vs_dense_m": gap}))
+        _finite_rows("torch_diag_graphsolve", rows, ("ms",))
+        _finite_rows("torch_diag_graphsolve", {m: r for m, r in rows.items() if m == "pcg"},
+                     ("max_t_err_m", "chi2"))
+        solved = [r for r in rows.values() if r["method"] == "pcg" or np.isfinite(r["chi2"])]
+        if (gap is not None and np.isfinite(rows["dense"]["chi2"]) and not gap <= SOLVE_AGREE_M
+                ) or any(
+                not r["max_t_err_m"] < 0.2 * r["start_max_t_err_m"] for r in solved):
+            raise AssertionError(f"graph solve diagnostic at K={k}: pcg {gap} m from dense, "
+                                 f"rows {rows}")
+        del sols
+        dense.free(device)
+    ct = _tool("torch_diag_ct")
+    ct_rows = ct.run_variants(ct.workload(N_CT_PAIRS, device, cfg), cfg.registration,
+                              cfg.static.max_voxels)
+    for row in ct_rows.values():
+        if not (np.isfinite(row["rot"]).all() and np.isfinite(row["trans"]).all()):
+            raise AssertionError(f"CT diagnostic: non-finite estimates in {row['variant']}")
+        print(json.dumps({"tool": "torch_diag_ct",
+                          **{k: v for k, v in row.items() if k not in ("rot", "trans")}}))
+    prior = _tool("torch_diag_prior")
+    sim = prior.sim_config(N_PRIOR_SCANS)
+    scene = make_scene(sim, device)
+    report = prior.run(list(generate_sequence(sim, device, scene)), cfg, device,
+                       ground_map_points(sim, device, scene), check=True)
+    print(json.dumps({"tool": "torch_diag_prior", **{k: v for k, v in report.items()
+                                                      if k != "ticks"}}))
+    funnels = [list(f.values()) for f in report["funnel"].values()]
+    if (any(c != sorted(c, reverse=True) for c in funnels) or not report["ticks"]
+            or report["funnel"]["associate"]["assoc_accepted"] != report["n_prior_factors"]):
+        raise AssertionError(f"prior diagnostic: funnels {report['funnel']}, "
+                             f"{report['n_prior_factors']} prior factors")
+    print(f"diagnostics: {time.perf_counter() - t1:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is false)")
@@ -1375,6 +1479,9 @@ def main() -> int:
     t0 = time.perf_counter()
     latency_launches = latency_and_pipeline(device)
     print(f"phase 10: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    profile_launches = profiles_and_diagnostics(device)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s wall")
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
@@ -1384,7 +1491,8 @@ def main() -> int:
          "launches_per_runtime_scan": runtime_launches[name] / N_MAP,
          "launches_parallel": parallel_launches[name],
          "launches_batch_mapping": batch_launches[name],
-         "launches_latency": latency_launches[name], **summary[name]}
+         "launches_latency": latency_launches[name],
+         "launches_profile": profile_launches[name], **summary[name]}
         for name in KERNELS]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(smi)

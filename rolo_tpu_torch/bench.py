@@ -14,6 +14,7 @@ rate is printed. The scans come from the port's own simulator.
 from __future__ import annotations
 
 import json
+import statistics
 import sys
 import time
 from typing import List, Tuple
@@ -117,20 +118,22 @@ def register_batch(src, src_mask, tgt, tgt_mask, guess, reg: RegistrationConfig,
 _HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
-def profile_run(run, top: int = 12) -> dict:
+def profile_run(run, top: int = 12, wall_ms: float = None) -> dict:
     """Where one call of `run` (which must end in a synchronize) spends the
-    card's time: wall time without the profiler after a warm call, then one
-    torch.profiler trace for the kernels. The busy share is kernel time over
-    the unprofiled wall time; `host_waits` counts the host's waits for the
-    card (run's closing synchronize included) and `d2h_copies` the copies
-    to the host."""
+    card's time: wall time without the profiler after a warm call (or the
+    caller's `wall_ms`, and no untraced call), then one torch.profiler trace
+    for the kernels, read from its raw events. The busy share is kernel time
+    over the unprofiled wall time; `host_waits` counts the host's waits for
+    the card (run's closing synchronize included) and `d2h_copies` the
+    copies to the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run()
-    t0 = time.perf_counter()
-    run()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    if wall_ms is None:
+        run()
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
@@ -138,19 +141,73 @@ def profile_run(run, top: int = 12) -> dict:
         run()
     by_name: dict = {}
     host_waits = d2h = 0
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(evt.name, (0.0, 0))
-            by_name[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3, n + 1)
-            d2h += evt.name.startswith("Memcpy DtoH")
+    # the raw events: building torch's event list takes longer than the traced call
+    for evt in prof.profiler.kineto_results.events():
+        name = evt.name()
+        if evt.device_type() == DeviceType.CUDA:
+            ms, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (ms + evt.duration_ns() / 1e6, n + 1)
+            d2h += name.startswith("Memcpy DtoH")
         else:
-            host_waits += evt.name in _HOST_WAITS
+            host_waits += name in _HOST_WAITS
     kernel_ms = sum(ms for ms, _ in by_name.values())
     launches = sum(n for _, n in by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "busy_share": kernel_ms / wall_ms,
             "device_launches": launches, "host_waits": host_waits, "d2h_copies": d2h,
             "top": [{"kernel": name[:90], "ms": ms, "count": n} for name, (ms, n) in rows]}
+
+
+def graph_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """Warm median device milliseconds per fn() call: `calls` calls captured
+    in one CUDA graph and replayed between two events, so the host's Python
+    and launch overhead is not in the time."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def stage_row(fn, device, iters: int = 5, top: int = 5):
+    """One row of the stage profilers (tools/torch_profile_*.py): (row,
+    fn()'s last output). `wall_ms` is the mean per call over `iters` calls
+    after a warm one, all enqueued before one synchronize. On the card the
+    row also holds `profile_run` of one more synchronized call: its kernel
+    ms, launches, the host's waits and the top kernels, and the busy share
+    against `wall_ms`. On the CPU the row holds the host's wall time only."""
+    device = torch.device(device)
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+    out = fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn()
+    sync()
+    row = {"wall_ms": (time.perf_counter() - t0) / iters * 1e3}
+    if device.type == "cuda":
+        def run():
+            fn()
+            sync()
+
+        row = profile_run(run, top, wall_ms=row["wall_ms"])
+    return row, out
 
 
 def profile_batch(src, src_mask, tgt, tgt_mask, reg: RegistrationConfig, voxel_capacity: int,

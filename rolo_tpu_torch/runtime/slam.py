@@ -43,6 +43,31 @@ from .platform import configure_precision, default_device
 from .profiling import StageTimers
 
 
+def deskew_increment(fusion_state: fusion.FusionState, odom_state: odometry.OdometryState,
+                     interval: float):
+    """Deskew increment for the upcoming sweep, in the step convention
+    (the projection applies -rpy * ratio and +vel * ratio), from the
+    ESKF's smoothed body rates and velocity once the filter runs, else
+    from the last registration step (slam.py:184-207). Feeding the raw
+    step back alone is unstable: a step error warps the next scan,
+    which biases the next step."""
+    f = fusion_state.filter
+    o = odom_state
+    rot = torch.where(f.initialized, so3.exp(-f.omega * interval), o.step_rot)
+    vel = torch.where(f.initialized, (f.rot.T @ f.vel) * interval,
+                      -o.step_rot.T @ o.step_trans)
+    return torch.stack(so3.matrix_to_rpy(rot)), vel
+
+
+def ground_map_from_points(points, device) -> prior_ground.GroundMap:
+    """A ground map of `points` [M, 3] (numpy or a tensor), padded to the
+    next power of two."""
+    points = points.detach().cpu().numpy() if isinstance(points, torch.Tensor) else points
+    cap = 1 << int(np.ceil(np.log2(max(len(points), 1))))
+    cloud = PaddedCloud.from_points(points, cap, device)
+    return prior_ground.GroundMap(cloud.xyz, cloud.mask)
+
+
 def infer_rings(xyz: np.ndarray, n_scan: int, fov_up_deg: float = 15.0,
                 fov_down_deg: float = -25.0) -> np.ndarray:
     """Ring index from vertical angle for sensors without a ring field
@@ -171,10 +196,7 @@ class SlamSystem:
     def set_ground_map(self, points) -> None:
         """External ground map (the "/voxel_map" input of the reference's
         ground_mapping node)."""
-        points = points.detach().cpu().numpy() if isinstance(points, torch.Tensor) else points
-        cap = 1 << int(np.ceil(np.log2(max(len(points), 1))))
-        cloud = PaddedCloud.from_points(points, cap, self.device)
-        self.ground_map = prior_ground.GroundMap(cloud.xyz, cloud.mask)
+        self.ground_map = ground_map_from_points(points, self.device)
 
     def inject_loop(self, time_cur: float, time_prev: float) -> None:
         """Queue an externally detected loop pair by raw stamps (the
@@ -235,18 +257,7 @@ class SlamSystem:
     # -- main per-scan entry ---------------------------------------------
 
     def _deskew_increment(self, interval: float):
-        """Deskew increment for the upcoming sweep, in the step convention
-        (the projection applies -rpy * ratio and +vel * ratio), from the
-        ESKF's smoothed body rates and velocity once the filter runs, else
-        from the last registration step (slam.py:184-207). Feeding the raw
-        step back alone is unstable: a step error warps the next scan,
-        which biases the next step."""
-        f = self.fusion_state.filter
-        o = self.odom_state
-        rot = torch.where(f.initialized, so3.exp(-f.omega * interval), o.step_rot)
-        vel = torch.where(f.initialized, (f.rot.T @ f.vel) * interval,
-                          -o.step_rot.T @ o.step_trans)
-        return torch.stack(so3.matrix_to_rpy(rot)), vel
+        return deskew_increment(self.fusion_state, self.odom_state, interval)
 
     def process_scan(self, points, stamp: float, ring=None, rel_time=None
                      ) -> Dict[str, torch.Tensor]:

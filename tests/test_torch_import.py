@@ -3,9 +3,10 @@ it, its own config and chip_smoke.py, and running CPU scan_steps,
 backend_steps, a loop-closure pass, a prior cycle, ESKF fusion, a graph solve,
 three SlamSystem scans with a checkpoint and a restore, a batched mapping
 step, and the one-rank dry run of graft_entry (batched and point-split
-registration, batched mapping), and loading the port's tools, must never
-import jax or yaml nor execute a file of the JAX package. Its config copy reads the same values as the
-reference's, its state constructors default to the card, and every
+registration, batched mapping), and loading the port's tools (the measuring
+tools, the stage profilers and the diagnostics), must never import jax or yaml
+nor execute a file of the JAX package. Its config copy reads the same values
+as the reference's, its state constructors default to the card, and every
 subpackage exports the names its reference counterpart does."""
 
 import ast
@@ -54,7 +55,10 @@ import rolo_tpu_torch.loop, rolo_tpu_torch.mapping, rolo_tpu_torch.ops
 import rolo_tpu_torch.pointcloud, rolo_tpu_torch.prior, rolo_tpu_torch.sim, rolo_tpu_torch.voxel
 import importlib.util
 for tool in ("torch_bench_batch_mapping", "torch_bench_latency", "torch_bench_pipeline",
-             "torch_ab_study", "torch_ab_defaults"):
+             "torch_ab_study", "torch_ab_defaults", "torch_profile_frontend",
+             "torch_profile_stages", "torch_profile_build", "torch_profile_backend",
+             "torch_profile_projection", "torch_diag_dense_solve", "torch_diag_graphsolve",
+             "torch_diag_ct", "torch_diag_prior"):
     spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
     module = sys.modules[tool] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)  # module only; main() not run
