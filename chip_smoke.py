@@ -92,11 +92,24 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      and pcg within 1 mm of a finite dense solution and within a fifth of
      their start's error, the prior funnels narrowing to the run's prior
      factors. Each report prints as a JSON line.
+ 12. the multi-rank paths on the card (`multirank`): two spawned ranks, a
+     card each over NCCL where the machine has two, else both on card 0
+     over gloo (printed), each pinned to its card by distributed_init: (a)
+     registration_batch of its 8 of phase 3's pairs bit-equal to the
+     one-process batch's rows; (b) register_scan_pair_spmd over both ranks
+     on phase 8 (b)'s pair within 2e-4 / 2e-3 of register_scan_pair and
+     inside the bench gate, the same bits in both ranks; (c)
+     dryrun_multichip(2); (d) both kernels launched in every rank; (e)
+     tools/torch_bench_weak_2proc.py at its defaults and
+     tools/torch_bench_scaling.py at --ranks 2 --repeats 1, each row a JSON
+     line, every number finite and > 0. A rank's non-zero exit or a group
+     that hangs past its timeout fails the phase.
 Then one JSON line lists each kernel: its launches in phase 3's main-path
 run (and in phase 5's, "launches_mapping", and per lap scan; in phase
 6's, "launches_runtime"; in phase 8's, "launches_parallel"; in phase 9's,
 "launches_batch_mapping"; in phase 10's latency passes,
-"launches_latency"; in phase 11's profilers, "launches_profile"), and from phase
+"launches_latency"; in phase 11's profilers, "launches_profile"; in each
+of phase 12's ranks, "launches_multirank"), and from phase
 2 its worst max_abs_err and its
 ms / plain_ms / bound_ms summed over its cases (one call of each;
 library_ms only where every case has one; every case is also under
@@ -111,7 +124,6 @@ import collections
 import importlib.util
 import json
 import os
-import socket
 import statistics
 import subprocess
 import sys
@@ -144,6 +156,7 @@ from rolo_tpu_torch.ops.voxel_join import (INVALID_PACK, keyed_matmul, keyed_mat
                                            pack_polar, pack_uniform)
 from rolo_tpu_torch.parallel import (odometry_batch, prior_solve_batch, register_scan_pair_spmd,
                                      registration_batch, shard_registration_inputs)
+from rolo_tpu_torch.parallel import launch
 from rolo_tpu_torch.parallel.mesh import distributed_init, make_mesh
 from rolo_tpu_torch.pointcloud.cloud import PaddedCloud, concat_clouds
 from rolo_tpu_torch.prior.ground import init_live_ground
@@ -915,10 +928,7 @@ def parallel_slice(cfg: RoloConfig, pairs, clouds, frames, ground, device):
         return ok, f"{name}: {float(rot_err.max()):.4f} deg / {float(trans_err.max()):.5f} m"
 
     if device.type == "cuda":
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-        distributed_init(f"localhost:{port}", 1, 0, backend="nccl")
+        distributed_init(f"localhost:{launch.free_port()}", 1, 0, backend="nccl")
     mesh = make_mesh(device_type=device.type)
     point_mesh = make_mesh(axis_names=("point",), device_type=device.type)
     print(f"parallel: one-rank group, backend {torch.distributed.get_backend()}")
@@ -1405,6 +1415,185 @@ def profiles_and_diagnostics(device):
     return launches
 
 
+N_RANKS = 2  # phase 12
+MULTIRANK_TIMEOUT_S = 300  # each group phase 12 spawns: a hang in a collective fails the phase
+PAIR_FIELDS = ("src", "src_mask", "tgt", "tgt_mask", "gt_rot", "gt_trans")
+
+
+def multirank_worker(spec: dict) -> int:
+    """One rank of phase 12 (`chip_smoke.py --rank-worker SPEC`), pinned to
+    its card by distributed_init, on the bench pairs the parent saved in
+    spec["data"]: (a) registration_batch of this rank's slice, bit-equal to
+    the parent's rows; (b) register_scan_pair_spmd over the group on the
+    parent's median pair, within SPMD_ROT / SPMD_TRANS of its
+    register_scan_pair and inside the bench gate; (c)
+    dryrun_multichip(world). Any miss raises. Prints RESULT: the numbers,
+    each step's wall, both kernels' launches over (a)-(c) and the card's
+    memory."""
+    torch.set_num_threads(1)
+    configure_precision()
+    rank, world = spec["rank"], spec["world"]
+    distributed_init(f"localhost:{spec['port']}", world, rank, backend=spec["backend"])
+    device = torch.device(spec["device"])
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    data = np.load(spec["data"])
+    src, sm, tgt, tm, gt_rot, gt_trans = (torch.tensor(data[name], device=device)
+                                          for name in PAIR_FIELDS)
+    cfg = RoloConfig()
+    reg = cfg.registration
+    cap, k = cfg.static.max_voxels, reg.k_correspondences
+    mesh = make_mesh(device_type=device.type)
+    point_mesh = make_mesh(axis_names=("point",), device_type=device.type)
+    times = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    sync()
+    keyed_matmul.launches = 0
+    knn_moments.launches = 0
+    got = timed("a registration_batch", lambda: registration_batch(
+        *shard_registration_inputs(mesh, src, sm, tgt, tm, interval=0.2), cfg=reg,
+        voxel_capacity=cap, k=k))
+    b = src.shape[0] // world
+    for name, field in zip(got._fields, got):
+        if not torch.equal(field.cpu(), torch.from_numpy(data[f"want_{name}"][rank * b:
+                                                                           (rank + 1) * b])):
+            raise AssertionError(f"rank {rank}: registration_batch's {name} differs from the "
+                                 "one-process batch's rows")
+    i = int(data["pair"])
+    zero = torch.zeros(3, device=device)
+    dt = torch.tensor(0.2, device=device)
+    sp = timed("b register_scan_pair_spmd", lambda: register_scan_pair_spmd(
+        point_mesh, src[i], sm[i], tgt[i], tm[i], zero, zero, dt, dt, reg, cap, k))
+    d_rot = float((sp.rot.cpu() - torch.from_numpy(data["one_rot"])).abs().max())
+    d_trans = float((sp.trans.cpu() - torch.from_numpy(data["one_trans"])).abs().max())
+    rot_err, trans_err = bench.pose_errors(sp.rot[None], sp.trans[None], gt_rot[i:i + 1],
+                                           gt_trans[i:i + 1])
+    if not (d_rot <= SPMD_ROT and d_trans <= SPMD_TRANS and rot_err[0] < bench.GATE_ROT_DEG
+            and trans_err[0] < bench.GATE_TRANS_M):
+        raise AssertionError(f"rank {rank}: register_scan_pair_spmd {d_rot:.3e} / {d_trans:.3e} "
+                             f"from register_scan_pair, {rot_err[0]:.4f} deg / "
+                             f"{trans_err[0]:.5f} m from the truth")
+    timed("c dryrun_multichip", lambda: dryrun_multichip(world, device))
+    sync()
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    torch.distributed.barrier()  # every rank alive while the card's processes are listed
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=30).stdout.strip() if rank == 0 and on_card else None
+    torch.distributed.barrier()
+    print("RESULT " + json.dumps({
+        "rank": rank, "card": torch.cuda.current_device() if on_card else None, "pair": i,
+        "spmd_rot": sp.rot.cpu().reshape(-1).tolist(), "spmd_trans": sp.trans.cpu().tolist(),
+        "spmd_vs_one": [d_rot, d_trans], "spmd_err": [float(rot_err[0]), float(trans_err[0])],
+        "wall_s": times, "launches": launches,
+        "max_allocated_mb": torch.cuda.max_memory_allocated() / 2 ** 20 if on_card else 0.0,
+        "reserved_mb": torch.cuda.memory_reserved() / 2 ** 20 if on_card else 0.0,
+        "nvidia_smi_apps": apps}),
+        flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _positive_rows(tool: str, rows) -> None:
+    """Every number of every row finite and > 0 (flags and names aside)."""
+    bad = [r for r in rows if not all(np.isfinite(v) and v > 0 for v in r.values()
+                                      if isinstance(v, (int, float)) and not isinstance(v, bool))]
+    if bad:
+        raise AssertionError(f"{tool}: rows with a number that is not finite and > 0: {bad}")
+
+
+def multirank(pairs, device):
+    """Phase 12: the first run of the port's multi-rank paths on the card,
+    at RoloConfig() as in the ranks. N_RANKS spawned ranks, on cards of
+    their own over NCCL where the machine has them, else both on card 0
+    over gloo, run `multirank_worker`'s (a)-(c) on phase 3's bench pairs,
+    handed over in a temporary .npz with the one-process batch's result, the
+    median pair and its register_scan_pair; (d) both kernels must have
+    launched in every rank, and both ranks hold the same SPMD bits. (e)
+    tools/torch_bench_weak_2proc.py at its defaults and
+    tools/torch_bench_scaling.py at --ranks N_RANKS --repeats 1, each row
+    printed as a JSON line, every number in it finite and > 0. A rank that
+    exits non-zero, or a group that outlives MULTIRANK_TIMEOUT_S, raises.
+    Returns each kernel's launches per rank. `device` "cpu" rehearses the
+    phase on gloo (the kernels' plain versions: (d) fails)."""
+    cfg = RoloConfig()
+    reg = cfg.registration
+    cap, k = cfg.static.max_voxels, reg.k_correspondences
+    src, sm, tgt, tm, gt_rot, gt_trans = pairs
+    on_card = device.type == "cuda"
+    cards = torch.cuda.device_count() if on_card else 0
+    scaling, weak = _tool("torch_bench_scaling"), _tool("torch_bench_weak_2proc")
+    backend = launch.backend_for(N_RANKS, cards, device.type)
+    print(f"multirank: {N_RANKS} ranks on {cards} card(s), "
+          + ("a card each" if backend == "nccl" else f"{N_RANKS} ranks per card on card 0")
+          + f", backend {backend}")
+    want = bench.register_batch(src, sm, tgt, tm, torch.zeros_like(gt_trans), reg, cap, k)
+    _, trans_err = bench.pose_errors(want.rot, want.trans, gt_rot, gt_trans)
+    i = int(np.argsort(trans_err)[(len(trans_err) - 1) // 2])  # phase 8 (b)'s pair
+    zero = torch.zeros(1, 3, device=src.device)
+    dt = torch.full((1,), 0.2, device=src.device)
+    one = register_scan_pair(src[i:i + 1], sm[i:i + 1], tgt[i:i + 1], tm[i:i + 1], zero, zero,
+                             dt, dt, reg, cap, k)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench_pairs.npz")
+        np.savez(path, **{name: t.cpu().numpy() for name, t in zip(PAIR_FIELDS, pairs)},
+                 **{f"want_{name}": f.cpu().numpy() for name, f in zip(want._fields, want)},
+                 pair=i, one_rot=one.rot[0].cpu().numpy(), one_trans=one.trans[0].cpu().numpy())
+        spec = {"world": N_RANKS, "backend": backend, "data": path, "device": device.type}
+        outs = launch.run_ranks(
+            lambda r, port: [sys.executable, os.path.abspath(__file__), "--rank-worker",
+                             json.dumps({**spec, "rank": r, "port": port})],
+            N_RANKS, MULTIRANK_TIMEOUT_S)
+    results = [launch.result_of(out) for out in outs]
+    for line in outs[0].splitlines():
+        if line.startswith("dryrun_multichip"):
+            print(f"multirank (c) rank 0: {line}")
+    for res in results:
+        print(f"multirank rank {res['rank']} on card {res['card']}: (a) registration_batch of "
+              f"{src.shape[0] // N_RANKS} pairs bit-equal to the one-process rows; (b) spmd on "
+              f"pair {res['pair']} vs register_scan_pair {res['spmd_vs_one'][0]:.3e} / "
+              f"{res['spmd_vs_one'][1]:.3e} (limits {SPMD_ROT:g} / {SPMD_TRANS:g}), "
+              f"{res['spmd_err'][0]:.4f} deg / {res['spmd_err'][1]:.5f} m from the truth; (c) "
+              f"dryrun_multichip({N_RANKS}) ok; (d) launches {res['launches']}; wall s "
+              f"{json.dumps({n: round(t, 3) for n, t in res['wall_s'].items()})}; card memory "
+              f"max allocated {res['max_allocated_mb']:.1f} MB, reserved "
+              f"{res['reserved_mb']:.1f} MB")
+    print(f"multirank: nvidia-smi compute apps (pid, used memory) with both ranks alive: "
+          f"{results[0]['nvidia_smi_apps']!r}; checks {time.perf_counter() - t0:.1f} s")
+    if any((r["spmd_rot"], r["spmd_trans"]) != (results[0]["spmd_rot"], results[0]["spmd_trans"])
+           for r in results):
+        raise AssertionError("multirank (b): the ranks hold different SPMD results")
+    for res in results:
+        for name, n in res["launches"].items():
+            if n <= 0:
+                raise AssertionError(f"multirank (d): kernel {name} was not launched in rank "
+                                     f"{res['rank']}")
+    t1 = time.perf_counter()
+    row = weak.measure(device=device.type, timeout=MULTIRANK_TIMEOUT_S)
+    print(json.dumps({"tool": "torch_bench_weak_2proc", **row}))
+    print(f"multirank (e): torch_bench_weak_2proc {time.perf_counter() - t1:.1f} s; "
+          f"torch_bench_scaling --ranks {N_RANKS} --repeats 1:")
+    t1 = time.perf_counter()
+    rows, _ = scaling.measure(ranks=N_RANKS, repeats=1, device=device.type,
+                              timeout=MULTIRANK_TIMEOUT_S)
+    print(f"multirank (e): torch_bench_scaling {time.perf_counter() - t1:.1f} s")
+    _positive_rows("torch_bench_weak_2proc", [row])
+    _positive_rows("torch_bench_scaling", rows)
+    return {name: [res["launches"][name] for res in results] for name in KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is false)")
@@ -1471,7 +1660,7 @@ def main() -> int:
     t0 = time.perf_counter()
     parallel_launches = parallel_slice(cfg, pairs, clouds, frames, ground, device)
     print(f"phase 8: {time.perf_counter() - t0:.1f} s wall")
-    del clouds, frames, pairs, ground
+    del clouds, frames, ground
     t0 = time.perf_counter()
     batch_launches = batch_mapping(cfg, map_frames[:N_BATCH_SEQ * SEQ_LEN], device)
     print(f"phase 9: {time.perf_counter() - t0:.1f} s wall")
@@ -1482,6 +1671,9 @@ def main() -> int:
     t0 = time.perf_counter()
     profile_launches = profiles_and_diagnostics(device)
     print(f"phase 11: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    multirank_launches = multirank(pairs, device)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s wall")
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
@@ -1492,7 +1684,8 @@ def main() -> int:
          "launches_parallel": parallel_launches[name],
          "launches_batch_mapping": batch_launches[name],
          "launches_latency": latency_launches[name],
-         "launches_profile": profile_launches[name], **summary[name]}
+         "launches_profile": profile_launches[name],
+         "launches_multirank": multirank_launches[name], **summary[name]}
         for name in KERNELS]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(smi)
@@ -1503,4 +1696,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(multirank_worker(json.loads(sys.argv[2])) if sys.argv[1:2] == ["--rank-worker"]
+             else main())

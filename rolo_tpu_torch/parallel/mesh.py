@@ -14,8 +14,11 @@ placements (`Shard(0)` / `Replicate()` per mesh axis), the torch meaning of
 a NamedSharding's PartitionSpec; nothing in the port distributes a DTensor,
 they are there for callers who do. The reference's environment
 auto-detection of a cluster has no torch counterpart beyond a launcher's
-`WORLD_SIZE` / `RANK` / `MASTER_ADDR` variables (env://), which
-`distributed_init` reads.
+`WORLD_SIZE` / `RANK` / `LOCAL_RANK` / `MASTER_ADDR` variables (env://),
+which `distributed_init` reads. Where the reference gives each process its
+own local devices, `distributed_init` pins each rank to one card before the
+group exists: NCCL refuses two ranks on one card, so callers whose ranks
+outnumber the cards pass `backend="gloo"`, which shares a card.
 """
 
 from __future__ import annotations
@@ -30,16 +33,28 @@ import torch.distributed as dist
 from ..runtime.platform import default_device
 
 
+def _pin_card(process_id: int) -> None:
+    """Make this rank's card the current device: `LOCAL_RANK` when a
+    launcher sets it, else the process id, modulo the visible cards. Before
+    the group and before any allocation, so `default_device()` and the
+    kernels' streams are on it."""
+    if torch.cuda.is_available():
+        local = os.environ.get("LOCAL_RANK")
+        index = int(local) if local is not None else process_id
+        torch.cuda.set_device(index % torch.cuda.device_count())
+
+
 def distributed_init(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None, process_id: Optional[int] = None,
                      backend: Optional[str] = None) -> bool:
     """Join the process group (mesh.py:85-113): `coordinator_address`
     "host:port" of rank 0's TCP store, `num_processes` ranks, this one
     `process_id`; or, with no arguments, a launcher's env:// variables when
-    they name more than one rank. The backend defaults to NCCL when CUDA is
-    available, else gloo. Returns True when the group spans more than one
-    process; with no arguments in one process it does nothing and returns
-    False. A group that already exists is kept."""
+    they name more than one rank. Where CUDA is available each rank is first
+    pinned to its card (`_pin_card`), whatever the backend. The backend
+    defaults to NCCL when CUDA is available, else gloo. Returns True when
+    the group spans more than one process; with no arguments in one process
+    it does nothing and returns False. A group that already exists is kept."""
     if not dist.is_initialized():
         if backend is None:
             backend = "nccl" if torch.cuda.is_available() else "gloo"
@@ -47,11 +62,11 @@ def distributed_init(coordinator_address: Optional[str] = None,
             if coordinator_address is None or num_processes is None or process_id is None:
                 raise ValueError("distributed_init needs coordinator_address, num_processes "
                                  "and process_id together")
-            if backend == "nccl":
-                torch.cuda.set_device(process_id % torch.cuda.device_count())
+            _pin_card(process_id)
             dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
                                     world_size=num_processes, rank=process_id)
         elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            _pin_card(int(os.environ.get("RANK", "0")))
             dist.init_process_group(backend, init_method="env://")
     return dist.is_initialized() and dist.get_world_size() > 1
 

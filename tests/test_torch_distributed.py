@@ -13,14 +13,20 @@ process boundary. Each worker runs
     fails the test;
   - a point count the group does not divide, refused on both ranks;
   - dryrun_multichip(2) on the CPU.
+
+And a launcher's env:// group (`torch.distributed.run`) joined through
+distributed_init() with no arguments: two gloo ranks on the CPU, and on a
+machine with two or more cards one NCCL rank a card (marked `cuda`).
 """
 
 import os
-import socket
 import subprocess
 import sys
 
 import pytest
+import torch
+
+from rolo_tpu_torch.parallel.launch import ROOT, result_of, run_ranks
 
 _WORKER = r"""
 import sys
@@ -109,34 +115,73 @@ print(f"WORKER_{pid}_OK spmd_vs_one rot {float((spmd.rot - one.rot[0]).abs().max
 TIMEOUT_S = 240
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def test_two_process_gloo_group(tmp_path):
-    port = _free_port()
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
     script = tmp_path / "worker.py"
     script.write_text(_WORKER)
-    procs = [subprocess.Popen([sys.executable, str(script), str(port), str(pid)], cwd=root,
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for pid in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=TIMEOUT_S)[0])
-    except subprocess.TimeoutExpired:
-        pytest.fail(f"a worker did not finish in {TIMEOUT_S} s (a rank waiting in a collective)")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for pid, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"worker {pid} failed:\n{out[-4000:]}"
+    outs = run_ranks(lambda pid, port: [sys.executable, str(script), str(port), str(pid)], 2,
+                     TIMEOUT_S)
+    for pid, out in enumerate(outs):
         assert f"WORKER_{pid}_OK" in out, out[-4000:]
+
+
+_LAUNCH_WORKER = r"""
+import json
+import os
+import sys
+import torch
+import torch.distributed as dist
+from rolo_tpu_torch.parallel.mesh import distributed_init
+
+assert distributed_init()
+on_card = torch.cuda.is_available()
+total = torch.tensor([dist.get_rank() + 1.0], device="cuda" if on_card else "cpu")
+dist.all_reduce(total)
+# one write a line: the ranks share the launcher's stdout
+sys.stdout.write("RESULT " + json.dumps({
+    "rank": dist.get_rank(), "world": dist.get_world_size(),
+    "local_rank": os.environ["LOCAL_RANK"], "backend": dist.get_backend(),
+    "card": torch.cuda.current_device() if on_card else None, "sum": float(total)}) + "\n")
+sys.stdout.flush()
+dist.destroy_process_group()
+"""
+
+
+def _launch(tmp_path, nproc, env):
+    """_LAUNCH_WORKER under `torch.distributed.run --standalone` with nproc
+    ranks: each rank's RESULT, by rank."""
+    script = tmp_path / "launch_worker.py"
+    script.write_text(_LAUNCH_WORKER)
+    env = {**env, "PYTHONPATH": ROOT + os.pathsep + env.get("PYTHONPATH", "")}
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    for name in ("LOCAL_RANK", "RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(name, None)
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", str(nproc), str(script)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    rows = [result_of(line) for line in proc.stdout.splitlines() if line.startswith("RESULT ")]
+    return sorted(rows, key=lambda r: r["rank"])
+
+
+def test_launcher_group_through_distributed_init(tmp_path):
+    """Two ranks under `torch.distributed.run`, the cards hidden:
+    distributed_init() joins the launcher's env:// group over gloo on the
+    CPU, and each rank all-reduces to 1 + 2."""
+    rows = _launch(tmp_path, 2, {**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert [(r["rank"], r["world"], r["local_rank"], r["backend"], r["card"], r["sum"])
+            for r in rows] == [(0, 2, "0", "gloo", None, 3.0), (1, 2, "1", "gloo", None, 3.0)]
+
+
+@pytest.mark.cuda
+def test_launcher_group_pins_a_card_per_rank(tmp_path):
+    """One rank per visible card under `torch.distributed.run`:
+    distributed_init() pins rank r to card LOCAL_RANK before NCCL makes the
+    group (without the pin every rank takes card 0 and NCCL refuses the
+    group as a duplicate GPU), and the all-reduce sums 1 + ... + n."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    rows = _launch(tmp_path, cards, dict(os.environ))
+    assert [(r["rank"], r["local_rank"], r["backend"], r["card"]) for r in rows] == \
+        [(r, str(r), "nccl", r) for r in range(cards)]
+    assert all(r["world"] == cards and r["sum"] == cards * (cards + 1) / 2 for r in rows)

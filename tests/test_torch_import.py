@@ -47,7 +47,7 @@ import rolo_tpu_torch.runtime.metrics, rolo_tpu_torch.runtime.profiling
 import rolo_tpu_torch.runtime.bagwriter, rolo_tpu_torch.runtime.viz
 import rolo_tpu_torch.cpp.host, rolo_tpu_torch.__main__
 import rolo_tpu_torch.filter.manifold, rolo_tpu_torch.registration.experimental
-import rolo_tpu_torch.parallel, rolo_tpu_torch.graft_entry
+import rolo_tpu_torch.parallel, rolo_tpu_torch.parallel.launch, rolo_tpu_torch.graft_entry
 # the subpackages' public surface, as the JAX package's README imports it
 from rolo_tpu_torch.mapping import backend_step, solve_graph_host
 import rolo_tpu_torch.frontend, rolo_tpu_torch.geometry, rolo_tpu_torch.graph
@@ -58,7 +58,8 @@ for tool in ("torch_bench_batch_mapping", "torch_bench_latency", "torch_bench_pi
              "torch_ab_study", "torch_ab_defaults", "torch_profile_frontend",
              "torch_profile_stages", "torch_profile_build", "torch_profile_backend",
              "torch_profile_projection", "torch_diag_dense_solve", "torch_diag_graphsolve",
-             "torch_diag_ct", "torch_diag_prior"):
+             "torch_diag_ct", "torch_diag_prior", "torch_bench_scaling",
+             "torch_bench_weak_2proc"):
     spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
     module = sys.modules[tool] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)  # module only; main() not run

@@ -3,11 +3,14 @@ mesh helpers and batch slices, registration_batch against the same pairs
 one at a time, odometry_batch against each sequence's own run_sequence,
 prior_solve_batch against the JAX reference's (tests/test_parallel.py's
 scene and limits) and against the scalar solver, the SPMD path's check of
-the point count, and distributed_init without a cluster.
+the point count, and distributed_init without a cluster and its pinning
+of each rank to a card (torch.cuda and the group's start stubbed).
 
 A batch gives each instance the bits it gets alone (the batch-invariant
 sums of registration/gicp.py and prior/vehicle.py), so those comparisons
 are torch.equal."""
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -83,6 +86,39 @@ def test_distributed_init_single_process_is_a_noop(monkeypatch):
     was = torch.distributed.is_initialized()
     assert pmesh.distributed_init() is False
     assert torch.distributed.is_initialized() == was
+
+
+@pytest.mark.parametrize("path,env,args", [
+    ("env", {"LOCAL_RANK": "1", "RANK": "1", "WORLD_SIZE": "2"}, {}),
+    ("tcp", {}, {"coordinator_address": "localhost:1", "num_processes": 4, "process_id": 3,
+                 "backend": "gloo"}),
+], ids=["env-local-rank", "tcp-gloo-process-id"])
+def test_distributed_init_pins_each_rank_to_its_card(monkeypatch, path, env, args):
+    """On a host with two cards, rank 1 of a launcher's env:// group (its
+    LOCAL_RANK) and process 3 of a tcp:// gloo group both take card 1, set
+    before the group is made. Without it every rank allocates on card 0 and
+    NCCL refuses the group."""
+    for name in ("LOCAL_RANK", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    calls = []
+    state = {"world": 0}
+
+    def init_process_group(backend, init_method=None, world_size=-1, rank=-1, **kwargs):
+        calls.append(("init", backend, init_method))
+        state["world"] = world_size if world_size > 0 else int(os.environ["WORLD_SIZE"])
+
+    monkeypatch.setattr(pmesh.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(pmesh.torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(pmesh.torch.cuda, "set_device", lambda i: calls.append(("card", i)))
+    monkeypatch.setattr(pmesh.dist, "is_initialized", lambda: state["world"] > 0)
+    monkeypatch.setattr(pmesh.dist, "get_world_size", lambda group=None: state["world"])
+    monkeypatch.setattr(pmesh.dist, "init_process_group", init_process_group)
+    assert pmesh.distributed_init(**args) is True
+    method = "env://" if path == "env" else "tcp://localhost:1"
+    backend = "nccl" if path == "env" else "gloo"
+    assert calls == [("card", 1), ("init", backend, method)]
 
 
 def _pairs(b=4, n=256):

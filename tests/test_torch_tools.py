@@ -29,7 +29,7 @@ from rolo_tpu_torch.sim.dataset import SimConfig, generate_sequence
 
 TOOLS = os.path.join(REPO, "tools")
 PORT_TOOLS = ("torch_bench_latency", "torch_bench_pipeline", "torch_ab_study",
-              "torch_ab_defaults")
+              "torch_ab_defaults", "torch_bench_scaling", "torch_bench_weak_2proc")
 # the reference's tunnel round-trip compensation, not ported on purpose
 RTT_KEYS = {"scan_to_pose_latency_realtime_minus_rtt",
             "scan_to_pose_latency_local_attach_emulated",
