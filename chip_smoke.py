@@ -76,10 +76,10 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      1e-4 m of dense); mapped scans/s and solves/s batched and looped, and
      solve_graph_host's ms at buckets 256-2,048.
  10. the measuring tools (`latency_and_pipeline`): tools/torch_bench_latency.py's
-     saturated and 10 Hz feeds over 40 scans of its sim (20 measured, no
-     warm pass), gated on 20 finite latencies a mode, no paced scan
+     saturated and 10 Hz feeds over 28 scans of its sim (8 measured, no
+     warm pass), gated on 8 finite latencies a mode, no paced scan
      started before its arrival, ATE < 1.0 m and both kernels launched;
-     then tools/torch_bench_pipeline.py at --warmup 10 --scans 20. Both
+     then tools/torch_bench_pipeline.py at --warmup 5 --scans 10. Both
      reports print as JSON lines.
  11. the stage profilers and diagnostics (`profiles_and_diagnostics`):
      tools/torch_profile_{frontend,stages,build,backend,projection}.py at
@@ -87,7 +87,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      one traced call's kernel ms, launches, host waits and top kernels),
      tools/torch_diag_{dense_solve,graphsolve}.py at buckets 256 and 2,048
      (graphsolve's pcg at 256 only),
-     torch_diag_ct.py on 4 bench pairs and torch_diag_prior.py over 20
+     torch_diag_ct.py on 4 bench pairs and torch_diag_prior.py over 12
      scans; every row finite, both kernels launched by the profilers, bcr
      and pcg within 1 mm of a finite dense solution and within a fifth of
      their start's error, the prior funnels narrowing to the run's prior
@@ -104,16 +104,32 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      tools/torch_bench_scaling.py at --ranks 2 --repeats 1, each row a JSON
      line, every number finite and > 0. A rank's non-zero exit or a group
      that hangs past its timeout fails the phase.
+ 13. the Ouster OS-64 configuration the repo ships (`ouster`):
+     configs/params_os.yaml + prior_pose_params.yaml, 64 x 2,048, 24,576
+     feature slots, 16,384 voxels, on N_OUSTER scans of a simulated 64-beam
+     sensor over the OS-64's field of view, written as Ouster PCDs (t U4
+     ns, ring U2) with a TUM ground truth: (a) both kernels against their
+     plain versions at these shapes, as in phase 2 (K1's build, polar and
+     fine joins and K2 at B = 1, K2 at B = 4); (b) the command line in this
+     process, `run --input <dir> --config params_os.yaml --config
+     prior_pose_params.yaml --gt <tum>`: rc 0, every scan, finite poses,
+     front-end ATE < 0.5 m, both kernels launched, the exports written;
+     scans/s, ms per scan, peak allocated memory, the mapped ATE; (c) the
+     capacity funnel per scan (raw returns kept, rings cut, extracted
+     points, corners, surfaces, features, valid voxels against their
+     capacities), printed, not gated; the same scans through run_frames
+     with max_raw_points 131,072 (the whole sweep), ATE < 0.5 m.
 Then one JSON line lists each kernel: its launches in phase 3's main-path
 run (and in phase 5's, "launches_mapping", and per lap scan; in phase
 6's, "launches_runtime"; in phase 8's, "launches_parallel"; in phase 9's,
 "launches_batch_mapping"; in phase 10's latency passes,
 "launches_latency"; in phase 11's profilers, "launches_profile"; in each
-of phase 12's ranks, "launches_multirank"), and from phase
-2 its worst max_abs_err and its
-ms / plain_ms / bound_ms summed over its cases (one call of each;
-library_ms only where every case has one; every case is also under
-"cases"; the B=1 cases are the shapes of phases 4-6).
+of phase 12's ranks, "launches_multirank"; in phase 13's command line,
+"launches_ouster"), its worst max_abs_err over phases 2 and 13, and from
+phase 2 its ms / plain_ms / bound_ms summed over its cases (one call of
+each; library_ms only where every case has one; every case is also under
+"cases"; the B=1 cases are the shapes of phases 4-6); phase 13's cases,
+summed alike, under "params_os".
 The line before the last is the card's `nvidia-smi` name and power limit;
 the last line is {"ok": true, "device": {...}}. Imports no JAX.
 """
@@ -121,7 +137,10 @@ the last line is {"ok": true, "device": {...}}. Imports no JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
 import importlib.util
+import io
 import json
 import os
 import statistics
@@ -136,7 +155,7 @@ import torch
 
 from rolo_tpu_torch import bench
 from rolo_tpu_torch.bench import graph_ms
-from rolo_tpu_torch.config import RoloConfig
+from rolo_tpu_torch.config import RoloConfig, load_config
 from rolo_tpu_torch.filter import manifold
 from rolo_tpu_torch.filter.fusion import (fused_pose, init_fusion, on_front_odometry,
                                           on_mapping_odometry)
@@ -166,10 +185,13 @@ from rolo_tpu_torch.registration.experimental import make_problem, register_mult
 from rolo_tpu_torch.registration.gicp import OFFSETS
 from rolo_tpu_torch.registration.rotgicp import register_scan_pair, register_se3
 from rolo_tpu_torch.runtime.cycles import ground_update, prior_cycle
-from rolo_tpu_torch.runtime.dataset import run_frames
+from rolo_tpu_torch.runtime import io as rio
+from rolo_tpu_torch.runtime.dataset import frames_from_dir, gt_from_tum, run_frames
 from rolo_tpu_torch.runtime.platform import configure_precision, nvidia_smi_name_power
 from rolo_tpu_torch.runtime.slam import SlamSystem
-from rolo_tpu_torch.sim.dataset import generate_sequence, ground_map_points, make_scene
+from rolo_tpu_torch.sim.dataset import (SimConfig, SimFrame, generate_sequence,
+                                        ground_map_points, make_scene, simulate_frame)
+from rolo_tpu_torch.sim.lidar import LidarModel
 from rolo_tpu_torch.voxel.knn import estimate_cov6, knn_indices, moment_table
 from rolo_tpu_torch.voxel.voxelmap import build_voxel_map, polar_coord, uniform_coord
 
@@ -230,7 +252,11 @@ def kernel_cases(cfg: RoloConfig, src, src_mask, tgt, tgt_mask):
     """Each kernel case at the main path's shapes, built from the workload's
     own feature clouds: name, case, kernel and plain callables, the bound
     from this case's inputs, and the one PyTorch call that computes the same
-    function (or why there is none)."""
+    function (or why there is none). The build takes build_voxel_map's
+    branch for the configuration: with a table of at least the cloud's
+    slots it sums the runs of the sorted packs; with fewer
+    (`params_os.yaml`: 16,384 voxels for 24,576 points) it joins the sorted
+    packs into the table of the smallest unique packs."""
     reg = cfg.registration
     polar = tuple(reg.polar_resolution)
     tgt_cov = estimate_cov6(tgt, tgt_mask, k=reg.k_correspondences)
@@ -239,21 +265,24 @@ def kernel_cases(cfg: RoloConfig, src, src_mask, tgt, tgt_mask):
                      1).contiguous()
     pack = torch.where(tgt_mask, pack_polar(polar_coord(tgt, polar)), INVALID_PACK)
     pack = pack.to(torch.int32).contiguous()
-    table = torch.sort(pack, dim=-1).values.contiguous()
+    vmap = build_voxel_map(tgt, tgt_cov, tgt_mask, cfg.static.max_voxels, polar_res=polar)
+    b, s, n = data.shape
+    runs = vmap.pack.shape[1] >= n
+    table = torch.sort(pack, dim=-1).values.contiguous() if runs else vmap.pack
 
-    def build():  # build_voxel_map's K1 part: one sort, one gather, run sums
+    def build():  # build_voxel_map's K1 part: one sort, one gather, run sums or a join
         sp, order = torch.sort(pack, dim=-1, stable=True)
-        return keyed_matmul(torch.gather(data, 2, order[:, None].expand_as(data)), sp, sp,
-                            keys_sorted=True)
+        return keyed_matmul(torch.gather(data, 2, order[:, None].expand_as(data)), sp,
+                            sp if runs else table, keys_sorted=True)
 
     # the library yardstick of the build: index_add_ of the value columns
     # into their table slots, the slot of each point computed beforehand
-    b, s, n = data.shape
-    slot = torch.searchsorted(table, pack)
-    flat = torch.where(tgt_mask, slot + n * torch.arange(b, device=pack.device)[:, None], b * n)
+    t = table.shape[1]
+    slot = torch.clamp(torch.searchsorted(table, pack), max=t - 1)
+    hit = tgt_mask & (torch.gather(table, 1, slot) == pack)
+    flat = torch.where(hit, slot + t * torch.arange(b, device=pack.device)[:, None], b * t)
     flat, rows = flat.reshape(-1), data.transpose(1, 2).reshape(-1, s).contiguous()
 
-    vmap = build_voxel_map(tgt, tgt_cov, tgt_mask, cfg.static.max_voxels, polar_res=polar)
     q1 = torch.where(src_mask, pack_polar(polar_coord(src, polar)), INVALID_PACK)
     q1 = q1.to(torch.int32).contiguous()
     fine = build_voxel_map(tgt, tgt_cov, tgt_mask, cfg.static.max_voxels, polar_res=None,
@@ -279,10 +308,12 @@ def kernel_cases(cfg: RoloConfig, src, src_mask, tgt, tgt_mask):
     qm_shard = tgt_mask[:, :xyz.shape[1] // 2].contiguous()
     shard_pairs = float((qm_shard.sum(dim=1).double() * n_valid).sum())
     return [
-        {"name": "keyed_sum", "case": f"build [10,{n}]->{n} (sort included)",
+        {"name": "keyed_sum",
+         "case": f"build [10,{n}]->{n} (sort included)" if runs else
+                 f"build [10,{n}] into a {t}-voxel table (sort included)",
          "kernel": build, "plain": lambda: keyed_matmul_torch(data, pack, table),
-         "bound": bound_ms(0.0, _nbytes(data, pack, table) + _nbytes(data)),
-         "library": lambda: torch.zeros(b * n + 1, s, device=data.device).index_add_(0, flat,
+         "bound": bound_ms(0.0, _nbytes(data, pack, table) + 4 * b * s * t),
+         "library": lambda: torch.zeros(b * t + 1, s, device=data.device).index_add_(0, flat,
                                                                                       rows),
          "library_note": "zeros + index_add_ of the value columns into their slots "
                          "(the slot computation excluded)",
@@ -1245,8 +1276,8 @@ def _tool(name: str):
     return module
 
 
-N_LATENCY = 40  # phase 10: the latency tool's first 20 scans run unpaced, 20 are measured
-N_PIPE_WARMUP, N_PIPE = 10, 20
+N_LATENCY = 28  # phase 10: the latency tool's first 20 scans run unpaced, 8 are measured
+N_PIPE_WARMUP, N_PIPE = 5, 10
 LATENCY_ATE_M = 1.0
 
 
@@ -1300,7 +1331,7 @@ PROFILE_ITERS = 3  # phase 11: timed calls of each profiler row (and one traced)
 DIAG_BUCKETS = (256, 2048)
 # graphsolve's pcg only here: one pcg solve of its big graph takes ~51 s at 2,048
 PCG_BUCKETS = (256,)
-N_CT_PAIRS, N_PRIOR_SCANS = 4, 20
+N_CT_PAIRS, N_PRIOR_SCANS = 4, 12
 # phase 11: the solve diagnostics' methods against dense, where dense is
 # finite (the f32 dense solve of diag_dense_solve's 1.4 km chain diverges at
 # K = 2,048, in the JAX package from K = 1,024 with bcr as well)
@@ -1594,6 +1625,249 @@ def multirank(pairs, device):
     return {name: [res["launches"][name] for res in results] for name in KERNELS}
 
 
+# phase 13: the Ouster OS-64 configuration the repo ships, through the CLI
+OUSTER_CONFIGS = (os.path.join(ROOT, "configs", "params_os.yaml"),
+                  os.path.join(ROOT, "configs", "prior_pose_params.yaml"))
+OUSTER_BEAMS, OUSTER_COLS = 64, 2048  # params_os.yaml's N_SCAN x Horizon_SCAN
+OUSTER_FOV_DEG = 16.6  # an OS-64's beams span +-16.6 deg (tests/test_dataset.py)
+N_OUSTER = 40
+OUSTER_ATE_M = 0.5  # phase 7's front-end bound
+OUSTER_FULL_SWEEP = OUSTER_BEAMS * OUSTER_COLS  # max_raw_points that holds a whole sweep
+
+
+def ouster_sim_config(n_scans: int, n_cols: int = OUSTER_COLS) -> SimConfig:
+    """The bench's simulator settings at the Ouster's column count."""
+    return dataclasses.replace(bench.bench_sim_config(n_scans), n_cols=n_cols)
+
+
+def ouster_model(sim: SimConfig, device) -> LidarModel:
+    """A 64-beam sensor over the OS-64's field of view, evenly spaced, top
+    beam first (ring 0), with the simulator's range, noise and dropout."""
+    elev = np.linspace(OUSTER_FOV_DEG, -OUSTER_FOV_DEG, OUSTER_BEAMS) * np.pi / 180.0
+    return LidarModel(torch.as_tensor(elev.astype(np.float32), device=device), 1.0,
+                      sim.max_range, sim.noise_std, sim.dropout)
+
+
+def ouster_scans(sim: SimConfig, device):
+    """Yield sim's scans as ouster_model sees them, as an Ouster driver
+    writes them: (stamp, xyz [M, 3] f32, t [M] u32 ns from the sweep's
+    start, ring [M] u16, gt_rot [3, 3], gt_trans [3]) in numpy, the valid
+    returns in beam-major order (an organized cloud, ring 0 first)."""
+    scene = make_scene(sim, device)
+    model = ouster_model(sim, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(sim.seed)
+    for i in range(sim.n_scans):
+        scan, gt_rot, gt_trans = simulate_frame(sim, scene, model, i, gen)
+        m = scan.mask
+        t_ns = torch.round(scan.rel_time[m].double() * 1e9).cpu().numpy().astype(np.uint32)
+        yield (1.0 + i / sim.scan_rate_hz, scan.xyz[m].cpu().numpy(), t_ns,
+               scan.ring[m].cpu().numpy().astype(np.uint16), gt_rot.cpu().numpy(),
+               gt_trans.cpu().numpy())
+
+
+def write_ouster_pcd(path: str, xyz, t_ns, ring) -> None:
+    """Binary PCD with an Ouster driver's fields: x y z (F4), t (U4, ns),
+    ring (U2)."""
+    n = len(xyz)
+    header = ("# .PCD v0.7 - Point Cloud Data file format\nVERSION 0.7\n"
+              "FIELDS x y z t ring\nSIZE 4 4 4 4 2\nTYPE F F F U U\nCOUNT 1 1 1 1 1\n"
+              f"WIDTH {n}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\nPOINTS {n}\nDATA binary\n")
+    rec = np.zeros(n, dtype=[("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("t", "<u4"),
+                             ("ring", "<u2")])
+    rec["x"], rec["y"], rec["z"] = np.asarray(xyz, np.float32).T
+    rec["t"], rec["ring"] = t_ns, ring
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(rec.tobytes())
+
+
+def write_ouster_sequence(out_dir: str, sim: SimConfig, device) -> list:
+    """sim's scans as Ouster PCDs named by their stamps
+    (0000000001.000000.pcd, ...) and the ground truth as gt_tum.txt in
+    out_dir; returns each scan's (gt_rot, gt_trans) as tensors on device."""
+    os.makedirs(out_dir, exist_ok=True)
+    stamps, gts = [], []
+    for stamp, xyz, t_ns, ring, gt_rot, gt_trans in ouster_scans(sim, device):
+        write_ouster_pcd(os.path.join(out_dir, f"{stamp:017.6f}.pcd"), xyz, t_ns, ring)
+        stamps.append(float(f"{stamp:.6f}"))
+        gts.append((torch.as_tensor(gt_rot, device=device), torch.as_tensor(gt_trans,
+                                                                            device=device)))
+    rot = torch.stack([r for r, _ in gts]).cpu()
+    rio.write_tum(os.path.join(out_dir, "gt_tum.txt"), stamps,
+                  torch.stack([t for _, t in gts]).cpu().numpy(),
+                  so3.matrix_to_quat(rot).numpy())
+    return gts
+
+
+def _sim_frame(frame, gt, device) -> SimFrame:
+    """A frame read from disk as a SimFrame on device, for bench.featurize."""
+    return SimFrame(frame.stamp, torch.as_tensor(frame.points, device=device),
+                    torch.as_tensor(frame.ring.astype(np.int32), device=device),
+                    torch.as_tensor(frame.rel_time, device=device), *gt)
+
+
+def ouster_funnel(cfg: RoloConfig, frame, device) -> dict:
+    """Phase 13 (c): what each capacity of cfg keeps of one scan read from
+    disk, through the front-end's own steps (without deskew)."""
+    st, reg = cfg.static, cfg.registration
+    n, cap = len(frame.points), st.max_raw_points
+    kept = np.bincount(frame.ring[:min(n, cap)], minlength=OUSTER_BEAMS)
+    returns = np.bincount(frame.ring, minlength=OUSTER_BEAMS)
+    cut = np.flatnonzero(kept < returns)  # rings that lost returns: the lowest, beam-major
+    fc, img = bench.featurize_parts(_sim_frame(frame, (None, None), device), cfg)
+    feat = concat_clouds(fc.corners, fc.surfaces, st.max_feature_points)
+    xyz, mask = feat.xyz[None], feat.mask[None]
+    vmap = build_voxel_map(xyz, estimate_cov6(xyz, mask, k=reg.k_correspondences), mask,
+                           st.max_voxels, polar_res=tuple(reg.polar_resolution))
+    return {"raw": n, "kept": min(n, cap), "rings_with_returns": int((returns > 0).sum()),
+            "rings_cut": int(cut.size), "first_ring_cut": int(cut[0]) if cut.size else -1,
+            "extracted": int(img.mask.sum()),
+            "corners": int(fc.corners.mask.sum()), "surfaces": int(fc.surfaces.mask.sum()),
+            "features": int(feat.mask.sum()), "voxels": int(vmap.valid.sum())}
+
+
+def _cli_in_process(argv) -> tuple:
+    """`python -m rolo_tpu_torch` in this process: (its JSON result, ms of
+    each process_scan synced at the fused-pose fetch, the launches)."""
+    from rolo_tpu_torch.__main__ import main as cli_main
+
+    real, scan_ms = SlamSystem.process_scan, []
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(self, *args, **kwargs)
+        self.published()
+        scan_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    SlamSystem.process_scan = timed
+    stdout = io.StringIO()
+    keyed_matmul.launches = 0
+    knn_moments.launches = 0
+    try:
+        with contextlib.redirect_stdout(stdout):
+            rc = cli_main(argv)
+    finally:
+        SlamSystem.process_scan = real
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    if rc != 0:
+        raise AssertionError(f"the CLI returned {rc}:\n{stdout.getvalue()[-4000:]}")
+    text = stdout.getvalue()  # the result is the last thing printed, an indented JSON object
+    start = 0 if text.startswith("{") else text.rindex("\n{") + 1
+    return json.loads(text[start:]), scan_ms, launches
+
+
+def ouster(device, n_scans: int = N_OUSTER):
+    """Phase 13: configs/params_os.yaml + prior_pose_params.yaml (an Ouster
+    OS-64, 64 x 2048, 24,576 feature slots, 16,384 voxels) on the card.
+    (a) both kernels against their plain versions at this configuration's
+    shapes, on a featurized 64 x 2048 pair (B = 1) and four pairs (K2 at B =
+    4); (b) the command line in this process, `run --input <dir of Ouster
+    PCDs> --config params_os.yaml --config prior_pose_params.yaml --gt
+    <tum>`, over n_scans simulated scans: rc 0, every scan processed, finite
+    poses, front-end ATE < OUSTER_ATE_M, both kernels launched, the exports
+    written; (c) the capacity funnel of each scan. The shipped
+    max_raw_points keeps about half a sweep's pixels; the same frames run
+    again through run_frames with the whole sweep kept, held to the same
+    ATE bound, show what the truncation costs. Returns the kernels' summary
+    and the run's launches. `device` "cpu" rehearses the phase."""
+    device = torch.device(device)
+    cfg = load_config(list(OUSTER_CONFIGS))
+    st = cfg.static
+    sim = ouster_sim_config(n_scans)
+    with tempfile.TemporaryDirectory() as tmp:
+        scans, out = os.path.join(tmp, "scans"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        gts = write_ouster_sequence(scans, sim, device)
+        gt_path = os.path.join(scans, "gt_tum.txt")
+        frames = list(frames_from_dir(scans))
+        print(f"ouster: {len(frames)} scans of {OUSTER_BEAMS} x {sim.n_cols} simulated and "
+              f"written as Ouster PCDs in {time.perf_counter() - t0:.1f} s, returns per scan "
+              f"{[len(f.points) for f in frames[:6]]}...; config N_SCAN {cfg.sensor.n_scan}, "
+              f"Horizon_SCAN {cfg.sensor.horizon_scan}, max_raw_points {st.max_raw_points}, "
+              f"corners / surfaces {st.max_corner_points} / {st.max_surf_points}, features "
+              f"{st.max_feature_points}, voxels {st.max_voxels}, deskew "
+              f"{cfg.sensor.deskew_enabled}")
+
+        # (a) the kernels at this configuration's shapes
+        sims = [_sim_frame(f, g, device) for f, g in zip(frames[:4 + STRIDE], gts)]
+        pairs = bench.stack_pairs([bench.featurize(f, cfg) for f in sims], sims, 4, STRIDE)
+        cases = [{**c, "case": f"params_os B=1 {c['case']}"}
+                 for c in kernel_cases(cfg, *(t[:1] for t in pairs[:4]))
+                 if "SPMD" not in c["case"]]
+        cases += [{**c, "case": f"params_os B=4 {c['case']}"}
+                  for c in kernel_cases(cfg, *pairs[:4])
+                  if c["name"] == "knn_moments" and "SPMD" not in c["case"]]
+        del sims, pairs
+        summary = check_kernels(cases)
+        del cases
+
+        # (b) the user's command line
+        on_card = device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, scan_ms, launches = _cli_in_process(
+            ["run", "--input", scans, "--config", OUSTER_CONFIGS[0], "--config", OUSTER_CONFIGS[1],
+             "--gt", gt_path, "--output", out, "--progress", "0", "--device", device.type])
+        seconds = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20 if on_card else float("nan")
+        missing = [f for f in ("front_end_tum.txt", "optimized_tum.txt", "pose_graph.g2o",
+                               "global_map.pcd", "result.json")
+                   if not os.path.exists(os.path.join(out, f))]
+        finite = all(np.isfinite(rio.read_tum(os.path.join(out, f))[1]).all()
+                     for f in ("front_end_tum.txt", "optimized_tum.txt") if f not in missing)
+        print(f"ouster (b): cli run in {seconds:.1f} s: {res['n_scans']} scans, "
+              f"{1e3 * len(scan_ms) / sum(scan_ms):.3f} scans/s synced at each fused-pose fetch "
+              f"(run_frames {res['scans_per_s']}), process_scan {_percentiles(scan_ms)}, peak "
+              f"allocated {peak_mb:.1f} MB; front-end ATE {res.get('ate_frontend_rmse_m')} m, "
+              f"mapped keyframes {res.get('ate_keyframes_rmse_m')} m, {res['n_keyframes']} "
+              f"keyframes, {res['n_loop_factors']} loop / {res['n_prior_factors']} prior "
+              f"factors; stage mean ms {json.dumps(res['stage_ms'])}; launches {launches}")
+
+        # (c) the capacity funnel
+        rows = [ouster_funnel(cfg, f, device) for f in frames]
+        caps = {"kept": st.max_raw_points, "corners": st.max_corner_points,
+                "surfaces": st.max_surf_points, "features": st.max_feature_points,
+                "voxels": st.max_voxels}
+        print("ouster (c): capacity funnel per scan, median / max over the scans (capacity): "
+              + "; ".join(f"{key} {int(np.median([r[key] for r in rows]))} / "
+                          f"{max(r[key] for r in rows)}"
+                          + (f" ({caps[key]}, at it in {sum(r[key] == caps[key] for r in rows)} "
+                             f"scans)" if key in caps else "")
+                          for key in rows[0])
+              + f"; the range image's points against max_extracted_points "
+                f"{st.max_extracted_points}, which caps nothing in either package")
+
+        # what the shipped truncation costs: the same scans, the whole sweep kept
+        full_cfg = load_config(list(OUSTER_CONFIGS),
+                               overrides={"static.max_raw_points": OUSTER_FULL_SWEEP})
+        full = run_frames(SlamSystem(full_cfg, device), frames_from_dir(scans),
+                          gt=gt_from_tum(gt_path))
+        print(f"ouster (b): the same scans through run_frames with max_raw_points "
+              f"{OUSTER_FULL_SWEEP} (the whole sweep; shipped {st.max_raw_points}): front-end "
+              f"ATE {full.ate_frontend.rmse:.4f} m, mapped keyframes "
+              f"{full.ate_keyframes.rmse:.4f} m, {full.n_keyframes} keyframes, "
+              f"{full.scans_per_s:.3f} scans/s")
+
+    if res["n_scans"] != n_scans or not finite:
+        raise AssertionError(f"ouster (b): {res['n_scans']} scans, finite poses {finite}")
+    if missing:
+        raise AssertionError(f"ouster (b): the CLI wrote no {missing}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"ouster (b): kernel {name} was not launched by the CLI run")
+    for name, ate in (("the CLI run", res.get("ate_frontend_rmse_m", np.inf)),
+                      ("the whole-sweep run", full.ate_frontend.rmse)):
+        if not ate < OUSTER_ATE_M:
+            raise AssertionError(f"ouster (b): {name}'s front-end ATE {ate} m, bound "
+                                 f"{OUSTER_ATE_M} m")
+    return summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is false)")
@@ -1674,6 +1948,9 @@ def main() -> int:
     t0 = time.perf_counter()
     multirank_launches = multirank(pairs, device)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    ouster_summary, ouster_launches = ouster(device)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s wall")
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
@@ -1685,7 +1962,10 @@ def main() -> int:
          "launches_batch_mapping": batch_launches[name],
          "launches_latency": latency_launches[name],
          "launches_profile": profile_launches[name],
-         "launches_multirank": multirank_launches[name], **summary[name]}
+         "launches_multirank": multirank_launches[name],
+         "launches_ouster": ouster_launches[name], **summary[name],
+         "max_abs_err": max(summary[name]["max_abs_err"], ouster_summary[name]["max_abs_err"]),
+         "params_os": ouster_summary[name]}
         for name in KERNELS]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(smi)

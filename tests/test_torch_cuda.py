@@ -44,9 +44,13 @@ def test_kernel_builds(cuda, name):
     print(cuda_build.BUILD_LOG.get(name, "(reused)"))
 
 
+# params_os.yaml's shapes (24,576 feature slots, 16,384 voxels): the build's
+# join of the sorted packs into the table, 24,576 keys in 96 KB of shared
+# memory; the fine direct7 join, 7 x 24,576 = 172,032 queries
 @pytest.mark.parametrize("b,s,k,m,sorted_keys", [
     (1, 3, 7, 5, True), (3, 10, 1000, 333, False), (16, 10, 8192, 57344, True),
-    (2, 10, MAX_SHARED_KEYS - 112, 4096, True)])
+    (2, 10, MAX_SHARED_KEYS - 112, 4096, True), (1, 10, 24576, 16384, True),
+    (1, 10, 16384, 172032, True)])
 def test_keyed_sum_matches_plain(cuda, b, s, k, m, sorted_keys):
     g = torch.Generator(device="cpu").manual_seed(0)
     keys_k = torch.randint(0, 300, (b, k), generator=g, dtype=torch.int32)
@@ -72,7 +76,8 @@ def _lidar(rng, b, n):
 
 @pytest.mark.parametrize("b,q,n,k", [(2, 300, 300, 8), (16, 8192, 8192, 20),
                                      (1, 8192, 8192, 20), (16, 4096, 8192, 20),
-                                     (1, 4096, 8192, 20)])
+                                     (1, 4096, 8192, 20), (1, 24576, 24576, 20),
+                                     (4, 24576, 24576, 20)])
 def test_knn_moments_matches_plain(cuda, b, q, n, k):
     """Q < N: the queries are the first Q candidates in a tensor of their
     own, as the point-split path's shard against the gathered cloud."""

@@ -159,14 +159,25 @@ def test_config_shim_matches_reference_defaults():
     assert cfg.static.max_feature_points == 1536 and cfg.sensor.n_scan == 16
 
 
-CONFIG_FILES = [
-    (torch_parity.FIXTURE_CONFIG,),
-    (os.path.join(REPO, "configs", "rellis", "params.yaml"),
-     os.path.join(REPO, "configs", "rellis", "prior_pose_params.yaml")),
-]
+def _pair(folder):
+    return (os.path.join(REPO, "configs", folder, "params.yaml"),
+            os.path.join(REPO, "configs", folder, "prior_pose_params.yaml"))
 
 
-@pytest.mark.parametrize("paths", CONFIG_FILES, ids=["sim_bag", "rellis"])
+# the fixture's file, and every params file the repo ships with the
+# prior_pose_params.yaml beside it
+CONFIG_FILES = {
+    "sim_bag": (torch_parity.FIXTURE_CONFIG,),
+    "rellis": _pair("rellis"),
+    "params": _pair(""),
+    "params_os": (os.path.join(REPO, "configs", "params_os.yaml"), _pair("")[1]),
+    "m2ud": _pair("m2ud"),
+    "selfcraft": _pair("selfcraft"),
+    "tartan2": _pair("tartan2"),
+}
+
+
+@pytest.mark.parametrize("paths", CONFIG_FILES.values(), ids=CONFIG_FILES.keys())
 def test_config_copy_loads_yaml_like_reference(paths):
     """The port's own copy of the config module reads the same YAML into the
     same values, field for field, as the JAX package's."""
@@ -180,6 +191,33 @@ def test_config_copy_loads_yaml_like_reference(paths):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert type(got.registration) is pc.RegistrationConfig
     assert got != pc.RoloConfig()  # the files do change fields
+
+
+def test_params_os_loads_without_pyyaml(monkeypatch):
+    """configs/params_os.yaml + prior_pose_params.yaml through the port's
+    parse_yaml with PyYAML hidden, as on the card's machine, which has
+    none: the same mapping as yaml.safe_load's and the same RoloConfig as
+    the JAX package's."""
+    import dataclasses
+
+    import yaml
+
+    from rolo_tpu.config import load_config as jload_config
+
+    from rolo_tpu_torch import config as pc
+
+    paths = list(CONFIG_FILES["params_os"])
+    want = jload_config(paths)
+    texts = [open(p).read() for p in paths]
+    parsed = [yaml.safe_load(t) for t in texts]
+    monkeypatch.setitem(sys.modules, "yaml", None)  # `import yaml` now raises
+    with pytest.raises(ImportError):
+        import yaml  # noqa: F401,F811
+    assert [pc.parse_yaml(t) for t in texts] == parsed
+    got = pc.load_config(paths)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.sensor.n_scan, got.sensor.horizon_scan) == (64, 2048)
+    assert (got.static.max_feature_points, got.static.max_voxels) == (24576, 16384)
 
 
 def test_config_copy_executes_no_reference_file():
