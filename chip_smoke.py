@@ -14,8 +14,10 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      per call (replayed CUDA graph) and one call's event time with its
      enqueue, the plain version's, the bound from the case's inputs (H100
      peaks) with its share, the one PyTorch call that computes the same
-     function where there is one (`library_ms`, timed like the kernel), and
-     the sort inside the build's and K2's times (`parts_ms`).
+     function where there is one (`library_ms`, timed like the kernel), for
+     K1's joins the two library calls that compute the same (searchsorted
+     + gather, `two_calls_ms`, timed alike and held to the plain version),
+     and the sort inside the build's and K2's times (`parts_ms`).
   3. the main path, the bench workload: simulated 32-beam scans ->
      featurize -> register_scan_pair on 16 stride-2 pairs from a zero guess.
      The bench gate (median < 0.75 deg and < 0.030 m) must hold, and both
@@ -119,17 +121,42 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      points, corners, surfaces, features, valid voxels against their
      capacities), printed, not gated; the same scans through run_frames
      with max_raw_points 131,072 (the whole sweep), ATE < 0.5 m.
+ 14. the M2UD configuration the repo ships (`m2ud`): configs/m2ud/params.yaml
+     + prior_pose_params.yaml (a VLP-16, 16 x 1,800, radius-search loops
+     only, the small robot's wheels and lidar offset), on N_M2UD scans of a
+     simulated VLP-16 0.45 m above the ground (the vehicle's com z plus its
+     lidar offset) on a closed 12 x 9 m loop of 30 s, written as a rosbag
+     v2 in a VLP-16 driver's fields (x y z intensity ring time, ring 0 the
+     lowest laser) with a TUM ground truth: (a) both kernels against their
+     plain versions on a featurized pair of the sequence (B = 1); (b) the
+     command line in this process, `run --input <bag> --topic
+     /velodyne_points --config params.yaml --config prior_pose_params.yaml
+     --gt <tum>`: rc 0, every scan, finite poses, front-end ATE < 0.5 m,
+     mapped keyframes no worse, the loaded loop type "rs", at least one loop
+     factor between keyframes more than 30 s apart, both kernels launched,
+     the exports written; the loop tick that verified and the first solve
+     that carried its factor, synced and timed, with the ATEs before and
+     after that solve; the prior ticks' funnel (contact solves, record
+     gates) and the prior factors, printed, not gated: the live ground map
+     holds no ground near the pose the prior cycle predicts, in the JAX
+     package too (ROADMAP Queue 3); (c) the README's
+     KITTI .bin recipe on the sequence's first 40 scans (no ring, no time:
+     both inferred): rc 0, 40 scans, finite poses, both kernels launched,
+     and the ring funnel (distinct inferred rings, points per ring, pixels
+     lost where two beams share a ring and a column), printed.
 Then one JSON line lists each kernel: its launches in phase 3's main-path
 run (and in phase 5's, "launches_mapping", and per lap scan; in phase
 6's, "launches_runtime"; in phase 8's, "launches_parallel"; in phase 9's,
 "launches_batch_mapping"; in phase 10's latency passes,
 "launches_latency"; in phase 11's profilers, "launches_profile"; in each
 of phase 12's ranks, "launches_multirank"; in phase 13's command line,
-"launches_ouster"), its worst max_abs_err over phases 2 and 13, and from
-phase 2 its ms / plain_ms / bound_ms summed over its cases (one call of
-each; library_ms only where every case has one; every case is also under
-"cases"; the B=1 cases are the shapes of phases 4-6); phase 13's cases,
-summed alike, under "params_os".
+"launches_ouster"; in phase 14's, "launches_m2ud" for the bag and
+"launches_m2ud_bin" for the .bin directory), its worst max_abs_err over
+phases 2, 13 and 14, and from phase 2 its ms / plain_ms / bound_ms summed
+over its cases (one call of each; library_ms only where every case has
+one; every case is also under "cases"; the B=1 cases are the shapes of
+phases 4-6); phase 13's cases, summed alike, under "params_os", phase
+14's under "m2ud".
 The line before the last is the card's `nvidia-smi` name and power limit;
 the last line is {"ok": true, "device": {...}}. Imports no JAX.
 """
@@ -141,7 +168,9 @@ import contextlib
 import dataclasses
 import importlib.util
 import io
+import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -178,6 +207,7 @@ from rolo_tpu_torch.parallel import (odometry_batch, prior_solve_batch, register
 from rolo_tpu_torch.parallel import launch
 from rolo_tpu_torch.parallel.mesh import distributed_init, make_mesh
 from rolo_tpu_torch.pointcloud.cloud import PaddedCloud, concat_clouds
+from rolo_tpu_torch.prior import association as association_module
 from rolo_tpu_torch.prior.ground import init_live_ground
 from rolo_tpu_torch.prior.vehicle import from_config as vehicle_from_config
 from rolo_tpu_torch.prior.vehicle import solve_pose
@@ -186,9 +216,11 @@ from rolo_tpu_torch.registration.gicp import OFFSETS
 from rolo_tpu_torch.registration.rotgicp import register_scan_pair, register_se3
 from rolo_tpu_torch.runtime.cycles import ground_update, prior_cycle
 from rolo_tpu_torch.runtime import io as rio
-from rolo_tpu_torch.runtime.dataset import frames_from_dir, gt_from_tum, run_frames
+from rolo_tpu_torch.runtime import metrics
+from rolo_tpu_torch.runtime.dataset import (frames_from_bag, frames_from_dir, gt_from_tum,
+                                            run_frames)
 from rolo_tpu_torch.runtime.platform import configure_precision, nvidia_smi_name_power
-from rolo_tpu_torch.runtime.slam import SlamSystem
+from rolo_tpu_torch.runtime.slam import SlamSystem, infer_rings
 from rolo_tpu_torch.sim.dataset import (SimConfig, SimFrame, generate_sequence,
                                         ground_map_points, make_scene, simulate_frame)
 from rolo_tpu_torch.sim.lidar import LidarModel
@@ -300,6 +332,12 @@ def kernel_cases(cfg: RoloConfig, src, src_mask, tgt, tgt_mask):
     def join(vm, q):  # the table's stats and keys, the queries, the [B, S, M] output
         return bound_ms(0.0, _nbytes(vm.stats, vm.pack, q) + 4 * vm.stats.shape[1] * q.numel())
 
+    def searchsorted_gather(vm, q):  # the join in library calls: a run's head, its stats
+        idx = torch.clamp(torch.searchsorted(vm.pack, q), max=vm.pack.shape[1] - 1)
+        found = torch.gather(vm.pack, 1, idx) == q
+        stats = torch.gather(vm.stats, 2, idx[:, None, :].expand(-1, vm.stats.shape[1], -1))
+        return torch.where(found[:, None, :], stats, 0.0)
+
     n_valid = tgt_mask.sum(dim=1).double()
     pairs = float((n_valid * n_valid).sum())  # valid queries x valid candidates
     # the first half of the points as the queries, against all of them: the
@@ -322,12 +360,14 @@ def kernel_cases(cfg: RoloConfig, src, src_mask, tgt, tgt_mask):
          "kernel": lambda: keyed_matmul(vmap.stats, vmap.pack, q1, keys_sorted=True,
                                         run_heads=True),
          "plain": lambda: keyed_matmul_torch(vmap.stats, vmap.pack, q1),
-         "bound": join(vmap, q1), "library": None, "library_note": no_join},
+         "bound": join(vmap, q1), "library": None, "library_note": no_join,
+         "two_calls": lambda: searchsorted_gather(vmap, q1)},
         {"name": "keyed_sum", "case": f"join fine direct7 M={q7.shape[1]}",
          "kernel": lambda: keyed_matmul(fine.stats, fine.pack, q7, keys_sorted=True,
                                         run_heads=True),
          "plain": lambda: keyed_matmul_torch(fine.stats, fine.pack, q7),
-         "bound": join(fine, q7), "library": None, "library_note": no_join},
+         "bound": join(fine, q7), "library": None, "library_note": no_join,
+         "two_calls": lambda: searchsorted_gather(fine, q7)},
         {"name": "knn_moments", "case": f"Q=N={xyz.shape[1]} k={k}",
          "kernel": lambda: knn_moments(xyz, tgt_mask, xyz, tgt_mask, xc, k),
          "plain": lambda: knn_moments_torch(xyz, tgt_mask, xyz, tgt_mask, xc, k),
@@ -363,6 +403,9 @@ def check_kernels(cases, reps: int = 5) -> dict:
         plain_ms = cuda_ms(c["plain"], max(1, reps // 2))
         lib_ms = graph_ms(c["library"]) if c["library"] is not None else None
         parts = {part: graph_ms(fn) for part, fn in c.get("parts", {}).items()}
+        two_calls = c.get("two_calls")
+        two_ms = graph_ms(two_calls) if two_calls is not None else None
+        two_err = plane_rel_err(two_calls(), want) if two_calls is not None else 0.0
         bound, bound_by = c["bound"]
         print(f"kernel {name} [{case}]: max_abs_err {max_abs:.3e}, rel err {err:.3e} "
               f"(tol {REL_TOL:g}), kernel {ms:.4f} ms device ({call_ms:.4f} ms one call "
@@ -370,9 +413,14 @@ def check_kernels(cases, reps: int = 5) -> dict:
               f"({100 * bound / ms:.1f}% of bound), library "
               + (f"{lib_ms:.4f} ms ({c['library_note']})" if lib_ms is not None
                  else f"null ({c['library_note']})")
-              + "".join(f"; of the kernel's time, {part} {t:.4f} ms" for part, t in parts.items()))
+              + "".join(f"; of the kernel's time, {part} {t:.4f} ms" for part, t in parts.items())
+              + (f"; searchsorted + gather (two calls, rel err {two_err:.3e}) {two_ms:.4f} ms"
+                 if two_calls is not None else ""))
         if not err <= REL_TOL:
             raise AssertionError(f"{name} [{case}] disagrees with its plain version: {err:.3e}")
+        if not two_err <= REL_TOL:
+            raise AssertionError(f"{name} [{case}]: searchsorted + gather disagrees with the "
+                                 f"plain version: {two_err:.3e}")
         if name == "knn_moments" and not torch.equal(got[:, 0], want[:, 0]):
             raise AssertionError("knn_moments membership counts differ from the plain version")
         if not torch.equal(got, again):
@@ -389,7 +437,8 @@ def check_kernels(cases, reps: int = 5) -> dict:
         sm["cases"].append({"case": case, "max_abs_err": max_abs, "rel_err": err, "ms": ms,
                             "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound,
                             "bound_by": bound_by, "library_ms": lib_ms,
-                            "library": c["library_note"], "parts_ms": parts})
+                            "library": c["library_note"], "parts_ms": parts,
+                            "two_calls_ms": two_ms})
     return summary
 
 
@@ -1327,7 +1376,7 @@ def latency_and_pipeline(device):
     return launches
 
 
-PROFILE_ITERS = 3  # phase 11: timed calls of each profiler row (and one traced)
+PROFILE_ITERS = 2  # phase 11: timed calls of each profiler row (and one traced)
 DIAG_BUCKETS = (256, 2048)
 # graphsolve's pcg only here: one pcg solve of its big graph takes ~51 s at 2,048
 PCG_BUCKETS = (256,)
@@ -1630,9 +1679,24 @@ OUSTER_CONFIGS = (os.path.join(ROOT, "configs", "params_os.yaml"),
                   os.path.join(ROOT, "configs", "prior_pose_params.yaml"))
 OUSTER_BEAMS, OUSTER_COLS = 64, 2048  # params_os.yaml's N_SCAN x Horizon_SCAN
 OUSTER_FOV_DEG = 16.6  # an OS-64's beams span +-16.6 deg (tests/test_dataset.py)
-N_OUSTER = 40
+N_OUSTER = 12  # scans of phase 13's two runs (at least 6: (a) takes 4 stride-2 pairs)
 OUSTER_ATE_M = 0.5  # phase 7's front-end bound
 OUSTER_FULL_SWEEP = OUSTER_BEAMS * OUSTER_COLS  # max_raw_points that holds a whole sweep
+
+
+def _write_gt(path: str, stamps, gts) -> None:
+    rot = torch.as_tensor(np.stack([r for r, _ in gts]))
+    rio.write_tum(path, stamps, np.stack([t for _, t in gts]), so3.matrix_to_quat(rot).numpy())
+
+
+def _cli_outputs(out: str) -> tuple:
+    """(files the CLI failed to write, whether its trajectories are finite)."""
+    missing = [f for f in ("front_end_tum.txt", "optimized_tum.txt", "pose_graph.g2o",
+                           "global_map.pcd", "result.json")
+               if not os.path.exists(os.path.join(out, f))]
+    finite = all(np.isfinite(rio.read_tum(os.path.join(out, f))[1]).all()
+                 for f in ("front_end_tum.txt", "optimized_tum.txt") if f not in missing)
+    return missing, finite
 
 
 def ouster_sim_config(n_scans: int, n_cols: int = OUSTER_COLS) -> SimConfig:
@@ -1691,13 +1755,9 @@ def write_ouster_sequence(out_dir: str, sim: SimConfig, device) -> list:
     for stamp, xyz, t_ns, ring, gt_rot, gt_trans in ouster_scans(sim, device):
         write_ouster_pcd(os.path.join(out_dir, f"{stamp:017.6f}.pcd"), xyz, t_ns, ring)
         stamps.append(float(f"{stamp:.6f}"))
-        gts.append((torch.as_tensor(gt_rot, device=device), torch.as_tensor(gt_trans,
-                                                                            device=device)))
-    rot = torch.stack([r for r, _ in gts]).cpu()
-    rio.write_tum(os.path.join(out_dir, "gt_tum.txt"), stamps,
-                  torch.stack([t for _, t in gts]).cpu().numpy(),
-                  so3.matrix_to_quat(rot).numpy())
-    return gts
+        gts.append((gt_rot, gt_trans))
+    _write_gt(os.path.join(out_dir, "gt_tum.txt"), stamps, gts)
+    return [tuple(torch.as_tensor(a, device=device) for a in gt) for gt in gts]
 
 
 def _sim_frame(frame, gt, device) -> SimFrame:
@@ -1727,9 +1787,11 @@ def ouster_funnel(cfg: RoloConfig, frame, device) -> dict:
             "features": int(feat.mask.sum()), "voxels": int(vmap.valid.sum())}
 
 
-def _cli_in_process(argv) -> tuple:
+def _cli_in_process(argv, per_scan=None) -> tuple:
     """`python -m rolo_tpu_torch` in this process: (its JSON result, ms of
-    each process_scan synced at the fused-pose fetch, the launches)."""
+    each process_scan synced at the fused-pose fetch, the launches).
+    `per_scan(slam)`, when given, sees the SlamSystem after every scan,
+    outside the timed span."""
     from rolo_tpu_torch.__main__ import main as cli_main
 
     real, scan_ms = SlamSystem.process_scan, []
@@ -1739,6 +1801,8 @@ def _cli_in_process(argv) -> tuple:
         out = real(self, *args, **kwargs)
         self.published()
         scan_ms.append((time.perf_counter() - t0) * 1e3)
+        if per_scan is not None:
+            per_scan(self)
         return out
 
     SlamSystem.process_scan = timed
@@ -1815,11 +1879,7 @@ def ouster(device, n_scans: int = N_OUSTER):
              "--gt", gt_path, "--output", out, "--progress", "0", "--device", device.type])
         seconds = time.perf_counter() - t0
         peak_mb = torch.cuda.max_memory_allocated() / 2**20 if on_card else float("nan")
-        missing = [f for f in ("front_end_tum.txt", "optimized_tum.txt", "pose_graph.g2o",
-                               "global_map.pcd", "result.json")
-                   if not os.path.exists(os.path.join(out, f))]
-        finite = all(np.isfinite(rio.read_tum(os.path.join(out, f))[1]).all()
-                     for f in ("front_end_tum.txt", "optimized_tum.txt") if f not in missing)
+        missing, finite = _cli_outputs(out)
         print(f"ouster (b): cli run in {seconds:.1f} s: {res['n_scans']} scans, "
               f"{1e3 * len(scan_ms) / sum(scan_ms):.3f} scans/s synced at each fused-pose fetch "
               f"(run_frames {res['scans_per_s']}), process_scan {_percentiles(scan_ms)}, peak "
@@ -1866,6 +1926,398 @@ def ouster(device, n_scans: int = N_OUSTER):
             raise AssertionError(f"ouster (b): {name}'s front-end ATE {ate} m, bound "
                                  f"{OUSTER_ATE_M} m")
     return summary, launches
+
+
+# phase 14: the M2UD configuration the repo ships (a VLP-16 on a small
+# ground robot, radius-search loops only), through the CLI
+M2UD_CONFIGS = (os.path.join(ROOT, "configs", "m2ud", "params.yaml"),
+                os.path.join(ROOT, "configs", "m2ud", "prior_pose_params.yaml"))
+M2UD_BEAMS = 16
+# a closed ellipse well inside the radius search's 30 m, back at its start
+# after one 30 s period (about 2.2 m/s, a small robot's pace), clear of the
+# scene's cylinders (none between 10 and 24 m from the origin, two inside 8 m)
+M2UD_RADII = (12.0, 9.0)
+M2UD_PERIOD_S = 30.0
+# 34 s at 10 Hz: the 1 Hz loop ticks at 31, 32 and 33 s find keyframes more
+# than historyKeyframeSearchTimeDiff (30 s) older than the newest
+N_M2UD = 340
+N_M2UD_BIN = 40  # the KITTI .bin recipe, on the first scans of the same sequence
+M2UD_TOPIC = "/velodyne_points"  # the VLP-16 driver's topic
+M2UD_ATE_M = 0.5  # phase 7's front-end bound
+
+
+def m2ud_sensor_height(cfg: RoloConfig) -> float:
+    """The lidar's height above the ground under the configuration's
+    vehicle: the wheels touch the ground vehicle_com_z below the body's
+    origin (prior/vehicle.from_config), the lidar sits lidarOffsetTrans
+    above it."""
+    return cfg.prior.vehicle_com_z + cfg.prior.lidar_offset_trans[2]
+
+
+def m2ud_sim_config(cfg: RoloConfig, n_scans: int) -> SimConfig:
+    """A VLP-16 at the configuration's column count and height on the
+    M2UD_RADII ellipse, the simulator's default scene, noise and seed."""
+    return SimConfig(n_scans=n_scans, n_cols=cfg.sensor.horizon_scan, sensor="velodyne16",
+                     radius_x=M2UD_RADII[0], radius_y=M2UD_RADII[1], period=M2UD_PERIOD_S,
+                     sensor_height=m2ud_sensor_height(cfg))
+
+
+def m2ud_scans(sim: SimConfig, device):
+    """Yield sim's scans as a VLP-16 driver publishes them: (stamp, xyz [M,
+    3] f32, ring [M] u16 with ring 0 the lowest laser, time [M] f32 seconds
+    from the sweep's start, gt_rot [3, 3], gt_trans [3]) in numpy. The
+    simulator numbers its top beam 0 (sim/lidar.py), a Velodyne driver its
+    lowest."""
+    for f in generate_sequence(sim, device):
+        ring = (M2UD_BEAMS - 1 - f.ring).cpu().numpy().astype(np.uint16)
+        yield (1.0 + f.stamp, f.points.cpu().numpy(), ring, f.rel_time.cpu().numpy(),
+               f.gt_rot.cpu().numpy(), f.gt_trans.cpu().numpy())
+
+
+def write_m2ud_bag(out_dir: str, sim: SimConfig, device) -> list:
+    """sim's scans as a rosbag v2 of VLP-16 PointCloud2 messages (x y z
+    intensity ring time) on M2UD_TOPIC, seq.bag, and the ground truth as
+    gt_tum.txt in out_dir; returns each scan's (gt_rot, gt_trans) in numpy."""
+    from rolo_tpu_torch.runtime.bagwriter import write_bag
+
+    os.makedirs(out_dir, exist_ok=True)
+    stamps, gts = [], []
+
+    def messages():
+        for stamp, xyz, ring, rel, gt_rot, gt_trans in m2ud_scans(sim, device):
+            stamps.append(stamp)
+            gts.append((gt_rot, gt_trans))
+            yield stamp, xyz, None, ring, rel
+
+    write_bag(os.path.join(out_dir, "seq.bag"), messages(), topic=M2UD_TOPIC)
+    _write_gt(os.path.join(out_dir, "gt_tum.txt"), stamps, gts)
+    return gts
+
+
+def write_kitti_bins(out_dir: str, frames, gts, rate_hz: float = 10.0) -> None:
+    """frames as a KITTI velodyne directory (000000.bin ..., x y z intensity
+    f32; no ring, no time) and the ground truth at the stamps
+    frames_from_dir makes up for it, index / rate_hz, as gt_tum.txt."""
+    os.makedirs(out_dir, exist_ok=True)
+    for i, f in enumerate(frames):
+        rec = np.zeros((len(f.points), 4), np.float32)
+        rec[:, :3] = f.points
+        rec.tofile(os.path.join(out_dir, f"{i:06d}.bin"))
+    _write_gt(os.path.join(out_dir, "gt_tum.txt"), [i / rate_hz for i in range(len(frames))],
+              gts[:len(frames)])
+
+
+def m2ud_ring_funnel(cfg: RoloConfig, frame, device) -> dict:
+    """Phase 14 (c): what a KITTI .bin scan loses without its ring field.
+    SlamSystem infers the rings from the elevation over +15 / -25 deg
+    whatever the sensor; for a VLP-16 (+-15 deg, 2 deg apart) that folds 16
+    beams into fewer rings, and two beams sharing a ring and a column keep
+    one pixel of the range image. Counted against the driver's rings."""
+    inferred = infer_rings(frame.points, cfg.sensor.n_scan)
+    per_ring = np.bincount(inferred, minlength=cfg.sensor.n_scan)
+    beam_of = {int(r): sorted(set(frame.ring[inferred == r].astype(int).tolist()))
+               for r in np.unique(inferred)}
+
+    def pixels(ring):
+        _, img = bench.featurize_parts(_sim_frame(frame, (None, None), device)._replace(
+            ring=torch.as_tensor(ring.astype(np.int32), device=device)), cfg)
+        return int(img.mask.sum())
+
+    driver, folded = pixels(frame.ring), pixels(inferred)
+    return {"returns": len(frame.points), "distinct_rings": len(beam_of),
+            "beams_per_ring": [len(beam_of.get(r, [])) for r in range(cfg.sensor.n_scan)],
+            "points_per_ring": per_ring.tolist(), "pixels_driver_rings": driver,
+            "pixels_inferred_rings": folded, "pixels_lost": driver - folded}
+
+
+def _ate_rmse(stamps, positions, gt_t, gt_p) -> float:
+    ia, ib = metrics.associate_by_time(np.asarray(stamps), gt_t, max_diff=0.05)
+    return metrics.ate(positions[ia], gt_p[ib]).rmse if len(ia) >= 3 else float("nan")
+
+
+class BackendWatch:
+    """Phase 14 (b): every loop tick and graph solve of a SlamSystem run,
+    synced and timed where it runs (patched into the back-end module the
+    runtime calls them through); every prior tick's contact solve
+    (patched into the association module), record gates and association,
+    and the factor counts after every scan, all kept on the device until
+    the run ends."""
+
+    def __init__(self, gt_path: str, sync):
+        gt_t, gt_p, _ = rio.read_tum(gt_path)
+        self.gt_t, self.gt_p, self.sync = gt_t, gt_p, sync
+        self.slam = None
+        self.ticks, self.solves, self.counts, self.contacts = [], [], [], []
+        self.records, self.matches = [], []
+
+    def prior_funnel(self, cfg: RoloConfig) -> dict:
+        """The contact solves' verdicts: FailureDetection's gates
+        (prior/vehicle.solve_pose), each counted over all the prior ticks."""
+        if not self.contacts:
+            return {"ticks": 0}
+        r = {f: torch.stack([getattr(c, f) for c in self.contacts]).cpu()
+             for f in ("converged", "roll", "pitch", "wheel_signed_distances", "success")}
+        pc = cfg.prior
+        return {"ticks": len(self.contacts), "converged": int(r["converged"].sum()),
+                "roll_pitch_ok": int(((r["roll"].abs() <= pc.tolerance_roll)
+                                      & (r["pitch"].abs() <= pc.tolerance_pitch)).sum()),
+                "wheels_ok": int((r["wheel_signed_distances"].abs()
+                                  <= pc.tolerance_wheel_distance).all(-1).sum()),
+                "success": int(r["success"].sum()),
+                "median_abs_roll_pitch_rad": [round(float(r[f].abs().median()), 3)
+                                              for f in ("roll", "pitch")]}
+
+    def _contact(self, real, *args, **kwargs):
+        res = real(*args, **kwargs)
+        self.contacts.append(res)
+        return res
+
+    def _record(self, real, state, obs, obs_time=None, cfg=None):
+        """record_prior_observation's gates (mapping/backend.py), read as
+        device tensors before the call, and whether it queued the entry."""
+        db, q = state.db, state.prior_queue
+        cur = torch.clamp(db.count.long() - 1, min=0)
+        t = torch.as_tensor(obs_time, dtype=db.time.dtype, device=db.time.device)
+        before = q.count.clone()
+        gates = [obs.success, db.count > 10, torch.abs(t - db.time[cur]) < 1e-2,
+                 t - q.last_time >= cfg.prior.synced_interval]
+        state = real(state, obs, obs_time=obs_time, cfg=cfg)
+        self.records.append(torch.stack(gates + [state.prior_queue.count > before]))
+        return state
+
+    def _associate(self, real, *args, **kwargs):
+        state, matched = real(*args, **kwargs)
+        self.matches.append(matched.clone())
+        return state, matched
+
+    def record_funnel(self) -> dict:
+        """The prior ticks' record gates, each count among the ticks that
+        passed every gate before it, and the associations that matched."""
+        names = ("observation_success", "keyframes_over_10", "keyframe_within_10ms",
+                 "synced_interval", "queued")
+        if not self.records:
+            return {"ticks": 0}
+        passed = torch.cumprod(torch.stack(self.records).cpu().int(), dim=1).sum(0).tolist()
+        return {"ticks": len(self.records), **dict(zip(names, passed)),
+                "matched": int(torch.stack(self.matches).cpu().sum())}
+
+    def per_scan(self, slam: SlamSystem) -> None:
+        self.slam = slam
+        g = slam.backend_state.graph
+        self.counts.append(torch.stack([g.loops.count, g.priors.count]).clone())
+
+    def _keyframes(self, state):
+        n = int(state.db.count)
+        return (state.db.time[:n].double().cpu().numpy() + self.slam._epoch,
+                state.db.trans[:n].double().cpu().numpy())
+
+    def _timed(self, fn, *args, **kwargs):
+        self.sync()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        self.sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def _loop_step(self, real, state, cfg):
+        n0 = int(state.graph.loops.count)
+        (state, closed), ms = self._timed(real, state, cfg)
+        loops, db = state.graph.loops, state.db
+        new = [{"i": int(loops.i[k]), "j": int(loops.j[k]),
+                "dt_s": float(db.time[loops.i[k]] - db.time[loops.j[k]]),
+                "fitness": float(loops.noise_var[k, 0])}
+               for k in range(n0, int(loops.count))]
+        self.ticks.append({"stamp": self.slam._last_stamp, "ms": ms, "new": new})
+        return state, closed
+
+    def _solve(self, real, state, cfg, *args, **kwargs):
+        loops, priors = int(state.graph.loops.count), int(state.graph.priors.count)
+        first = loops > 0 and not any(s["loops"] for s in self.solves)
+        row = {"stamp": self.slam._last_stamp, "keyframes": int(state.db.count),
+               "loops": loops, "priors": priors}
+        if first:
+            kt, before = self._keyframes(state)
+            row["front_ate_m"] = _ate_rmse(np.asarray(self.slam.times) + self.slam._epoch,
+                                           self.slam.front_positions_np(), self.gt_t, self.gt_p)
+            row["mapped_ate_before_m"] = _ate_rmse(kt, before, self.gt_t, self.gt_p)
+        state, row["ms"] = self._timed(real, state, cfg, *args, **kwargs)
+        if first:
+            row["mapped_ate_after_m"] = _ate_rmse(*self._keyframes(state), self.gt_t, self.gt_p)
+        self.solves.append(row)
+        return state
+
+    @contextlib.contextmanager
+    def patched(self):
+        real_loop = backend_module.loop_closure_step
+        real_solve = backend_module.solve_graph_host
+        real_contact = association_module.solve_pose
+        real_record = backend_module.record_prior_observation
+        real_associate = backend_module.prior_step
+        backend_module.loop_closure_step = lambda *a: self._loop_step(real_loop, *a)
+        backend_module.solve_graph_host = lambda *a, **k: self._solve(real_solve, *a, **k)
+        association_module.solve_pose = lambda *a, **k: self._contact(real_contact, *a, **k)
+        backend_module.record_prior_observation = \
+            lambda *a, **k: self._record(real_record, *a, **k)
+        backend_module.prior_step = lambda *a, **k: self._associate(real_associate, *a, **k)
+        try:
+            yield self
+        finally:
+            backend_module.loop_closure_step = real_loop
+            backend_module.solve_graph_host = real_solve
+            association_module.solve_pose = real_contact
+            backend_module.record_prior_observation = real_record
+            backend_module.prior_step = real_associate
+
+
+def m2ud(device, n_scans: int = N_M2UD, n_bin: int = N_M2UD_BIN):
+    """Phase 14: configs/m2ud/params.yaml + prior_pose_params.yaml (a
+    VLP-16, 16 x 1,800, radius-search loops only, the small robot's wheels
+    and lidar) on the card, over n_scans simulated scans of one closed
+    loop written as a rosbag v2 in a VLP-16 driver's fields and ring order.
+    (a) both kernels against their plain versions on a featurized pair of
+    the sequence at this configuration's capacities (B = 1); (b) the
+    command line in this process, `run --input <bag> --topic M2UD_TOPIC
+    --config params.yaml --config prior_pose_params.yaml --gt <tum>`: rc 0,
+    every scan, finite poses, front-end ATE < M2UD_ATE_M, mapped keyframes
+    no worse, the loaded loop type "rs", at least one loop factor between
+    keyframes more than historyKeyframeSearchTimeDiff apart, both kernels
+    launched, the exports written; the loop tick that verified and the
+    first solve that carried its factor, each synced and timed, and the
+    prior ticks' funnel with the prior factors, printed (BackendWatch; the
+    JAX package records no prior observation here either); (c) the
+    README's KITTI .bin recipe on the first
+    n_bin scans (rings and times inferred): rc 0, every scan, finite poses,
+    both kernels launched, and the ring funnel. Returns the kernels' summary
+    and both runs' launches. `device` "cpu" rehearses the phase."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = load_config(list(M2UD_CONFIGS))
+    st = cfg.static
+    sim = m2ud_sim_config(cfg, n_scans)
+    config_args = ["--config", M2UD_CONFIGS[0], "--config", M2UD_CONFIGS[1]]
+    with tempfile.TemporaryDirectory() as tmp:
+        seq, bins = os.path.join(tmp, "seq"), os.path.join(tmp, "bin")
+        bag, gt_path = os.path.join(seq, "seq.bag"), os.path.join(seq, "gt_tum.txt")
+        t0 = time.perf_counter()
+        gts = write_m2ud_bag(seq, sim, device)
+        head = list(itertools.islice(frames_from_bag(bag, topic=M2UD_TOPIC), n_bin))
+        write_kitti_bins(bins, head, gts)
+        print(f"m2ud: {n_scans} scans of {M2UD_BEAMS} x {sim.n_cols} simulated at "
+              f"{sim.sensor_height:.2f} m on a {M2UD_RADII[0]} x {M2UD_RADII[1]} m loop of "
+              f"{M2UD_PERIOD_S} s, written as a rosbag v2 ({os.path.getsize(bag) / 2**20:.1f} "
+              f"MB) and {n_bin} KITTI .bin files in {time.perf_counter() - t0:.1f} s; returns "
+              f"per scan {[len(f.points) for f in head[:6]]}...; rings in the bag "
+              f"{sorted(set(head[0].ring.tolist()))}; config N_SCAN {cfg.sensor.n_scan}, "
+              f"Horizon_SCAN {cfg.sensor.horizon_scan}, loop type {cfg.loop.loop_close_type}, "
+              f"history radius / time diff {cfg.loop.history_search_radius} m / "
+              f"{cfg.loop.history_search_time_diff} s, wheels {list(cfg.prior.wheel_xy)}, com z "
+              f"{cfg.prior.vehicle_com_z}, lidar offset {list(cfg.prior.lidar_offset_trans)}, "
+              f"prior rot tolerance {math.degrees(cfg.prior.rot_diff_tolerance_rad):.1f} deg, "
+              f"synced interval {cfg.prior.synced_interval} s")
+
+        # (a) the kernels on this sequence's featurized scans
+        sims = [_sim_frame(f, tuple(torch.as_tensor(a, device=device) for a in g), device)
+                for f, g in zip(head[:1 + STRIDE], gts)]
+        pair = bench.stack_pairs([bench.featurize(f, cfg) for f in sims], sims, 1, STRIDE)
+        cases = [{**c, "case": f"m2ud B=1 {c['case']}"} for c in kernel_cases(cfg, *pair[:4])
+                 if "SPMD" not in c["case"]]
+        print(f"m2ud (a): valid features {[int(m.sum()) for m in (pair[1], pair[3])]} of "
+              f"{st.max_feature_points} slots")
+        del sims, pair
+        summary = check_kernels(cases)
+        del cases
+
+        # (b) the bag through the user's command line
+        if on_card:
+            sync()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        watch = BackendWatch(gt_path, sync)
+        out = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        with watch.patched():
+            res, scan_ms, launches = _cli_in_process(
+                ["run", "--input", bag, "--topic", M2UD_TOPIC, *config_args, "--gt", gt_path,
+                 "--output", out, "--progress", "0", "--device", device.type],
+                per_scan=watch.per_scan)
+        seconds = time.perf_counter() - t0
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20 if on_card else float("nan")
+        missing, finite = _cli_outputs(out)
+        slam = watch.slam
+        loops = slam.backend_state.graph.loops
+        db_time = slam.backend_state.db.time
+        factors = [(int(loops.i[k]), int(loops.j[k]), float(db_time[loops.i[k]] - db_time[
+            loops.j[k]])) for k in range(int(loops.count))]
+        counts = torch.stack(watch.counts).cpu().numpy()
+        # one row a scan in both files: the bag's first n_bin scans are (c)'s
+        front, gt_p = (rio.read_tum(p)[1][:n_bin] for p in (os.path.join(out, "front_end_tum.txt"),
+                                                             gt_path))
+        head_ate = metrics.ate(front, gt_p).rmse
+        verified = [t for t in watch.ticks if t["new"]]
+        carried = [s for s in watch.solves if s["loops"]]
+        print(f"m2ud (b): cli run in {seconds:.1f} s: {res['n_scans']} scans, "
+              f"{1e3 * len(scan_ms) / sum(scan_ms):.3f} scans/s synced at each fused-pose fetch "
+              f"(run_frames {res['scans_per_s']}), process_scan {_percentiles(scan_ms)}, peak "
+              f"allocated {peak_mb:.1f} MB; front-end ATE {res.get('ate_frontend_rmse_m')} m, "
+              f"mapped keyframes {res.get('ate_keyframes_rmse_m')} m, {res['n_keyframes']} "
+              f"keyframes, {res['n_loop_factors']} loop / {res['n_prior_factors']} prior "
+              f"factors, loops (i, j, keyframe dt s) {factors}; stage mean ms "
+              f"{json.dumps(res['stage_ms'])}; launches {launches}")
+        queue = int(slam.backend_state.prior_queue.count)
+        # printed, not gated: the live ground map of a 16-beam image in the
+        # driver's ring order holds only the ground within 2.5 m of each
+        # mapped pose, none near the pose the prior cycle predicts 8 m
+        # ahead, in both packages (tests/test_torch_m2ud.py)
+        print(f"m2ud (b): prior cycle, contact solves {json.dumps(watch.prior_funnel(cfg))}; "
+              f"record gates {json.dumps(watch.record_funnel())}; observations queued {queue}, "
+              f"prior factors {res['n_prior_factors']} (not gated)")
+        print(f"m2ud (b): loop ticks ms {_stats([t['ms'] for t in watch.ticks])}; ticks that "
+              f"verified {json.dumps(verified)}; solves ms "
+              f"{_stats([s['ms'] for s in watch.solves])}; the first that carried a loop "
+              f"{json.dumps(carried[:1])}")
+
+        # (c) the README's KITTI .bin recipe on the first n_bin scans
+        bin_out = os.path.join(tmp, "bin_out")
+        bin_res, bin_ms, bin_launches = _cli_in_process(
+            ["run", "--input", bins, *config_args, "--gt", os.path.join(bins, "gt_tum.txt"),
+             "--output", bin_out, "--progress", "0", "--device", device.type])
+        bin_missing, bin_finite = _cli_outputs(bin_out)
+        rows = [m2ud_ring_funnel(cfg, f, device) for f in head]
+        print(f"m2ud (c): {bin_res['n_scans']} KITTI .bin scans, {bin_res['scans_per_s']} "
+              f"scans/s, front-end ATE {bin_res.get('ate_frontend_rmse_m')} m against "
+              f"{head_ate:.4f} m over the bag's first {n_bin} scans in (b); prior factors "
+              f"{bin_res['n_prior_factors']} against {int(counts[n_bin - 1, 1])}; launches "
+              f"{bin_launches}")
+        print(f"m2ud (c): ring funnel, scan 0 {json.dumps(rows[0])}; over the {n_bin} scans, "
+              f"distinct inferred rings {sorted(set(r['distinct_rings'] for r in rows))} of "
+              f"{cfg.sensor.n_scan}, pixels lost median "
+              f"{int(np.median([r['pixels_lost'] for r in rows]))} / max "
+              f"{max(r['pixels_lost'] for r in rows)} of median "
+              f"{int(np.median([r['pixels_driver_rings'] for r in rows]))}")
+
+    if res["n_scans"] != n_scans or not finite:
+        raise AssertionError(f"m2ud (b): {res['n_scans']} scans, finite poses {finite}")
+    if missing or bin_missing:
+        raise AssertionError(f"m2ud: the CLI wrote no {missing} (b) / {bin_missing} (c)")
+    front_ate = res.get("ate_frontend_rmse_m", np.inf)
+    if not front_ate < M2UD_ATE_M:
+        raise AssertionError(f"m2ud (b): front-end ATE {front_ate} m, bound {M2UD_ATE_M} m")
+    if not res.get("ate_keyframes_rmse_m", np.inf) <= front_ate:
+        raise AssertionError(f"m2ud (b): mapped keyframes' ATE {res.get('ate_keyframes_rmse_m')}"
+                             f" m is worse than the front-end's {front_ate} m")
+    if slam.cfg.loop.loop_close_type != "rs":
+        raise AssertionError(f"m2ud (b): the CLI loaded loop type {slam.cfg.loop.loop_close_type}")
+    gap = cfg.loop.history_search_time_diff
+    if not any(dt > gap for _, _, dt in factors):
+        raise AssertionError(f"m2ud (b): no loop factor between keyframes more than {gap} s "
+                             f"apart: {factors}")
+    if bin_res["n_scans"] != n_bin or not bin_finite:
+        raise AssertionError(f"m2ud (c): {bin_res['n_scans']} scans, finite poses {bin_finite}")
+    for run, counted in (("(b)", launches), ("(c)", bin_launches)):
+        for name, count in counted.items():
+            if count <= 0:
+                raise AssertionError(f"m2ud {run}: kernel {name} was not launched by the CLI run")
+    return summary, launches, bin_launches
 
 
 def main() -> int:
@@ -1951,6 +2403,9 @@ def main() -> int:
     t0 = time.perf_counter()
     ouster_summary, ouster_launches = ouster(device)
     print(f"phase 13: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    m2ud_summary, m2ud_launches, m2ud_bin_launches = m2ud(device)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s wall")
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],
@@ -1963,9 +2418,12 @@ def main() -> int:
          "launches_latency": latency_launches[name],
          "launches_profile": profile_launches[name],
          "launches_multirank": multirank_launches[name],
-         "launches_ouster": ouster_launches[name], **summary[name],
-         "max_abs_err": max(summary[name]["max_abs_err"], ouster_summary[name]["max_abs_err"]),
-         "params_os": ouster_summary[name]}
+         "launches_ouster": ouster_launches[name],
+         "launches_m2ud": m2ud_launches[name], "launches_m2ud_bin": m2ud_bin_launches[name],
+         **summary[name],
+         "max_abs_err": max(summary[name]["max_abs_err"], ouster_summary[name]["max_abs_err"],
+                            m2ud_summary[name]["max_abs_err"]),
+         "params_os": ouster_summary[name], "m2ud": m2ud_summary[name]}
         for name in KERNELS]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(smi)

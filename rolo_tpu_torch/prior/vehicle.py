@@ -155,24 +155,39 @@ def _initial_z(gm: GroundMap, wheels_b, x, y, yaw, com_z, radius, min_neighbors)
 
 
 def _solve3(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a x = b for [..., 3, 3] systems by the adjugate: (x, solvable), x
-    zero where non-finite (a singular a gives 0 / 0), without a host sync.
-    The reference's LU solve also marks a singular system by non-finite
-    steps (vehicle.py:191-193)."""
-    adj = _adjugate3(a)
-    det = _dot(a[..., 0, :], adj[..., :, 0])
-    x = _mv(adj, b) / det[..., None]
+    """a x = b for [..., 3, 3] systems, as the reference's LU solve
+    (vehicle.py:191-193, LAPACK getrf / getrs): Gaussian elimination with
+    partial pivoting, row by row, elementwise, so no host sync and a batch
+    gives each instance its own bits. Returns (x, solvable), x zero where
+    non-finite (a singular a gives a zero pivot). The LM systems of a
+    contact solve on sparse ground reach condition numbers near 1e6, where
+    the adjugate formula loses every digit; pivoted elimination keeps the
+    backward error at f32 round-off."""
+    rows = [a[..., i, :] for i in range(3)]
+    rhs = [b[..., i] for i in range(3)]
+    for k in range(2):
+        # the row of the largest |a[i, k]|, i >= k (the first on ties) swaps with row k
+        p = torch.argmax(torch.stack([r[..., k].abs() for r in rows[k:]], -1), dim=-1) + k
+        pivot_row = rows[k]
+        pivot_rhs = rhs[k]
+        for j in range(k + 1, 3):
+            pick = p == j
+            pivot_row = torch.where(pick[..., None], rows[j], pivot_row)
+            pivot_rhs = torch.where(pick, rhs[j], pivot_rhs)
+            rows[j] = torch.where(pick[..., None], rows[k], rows[j])
+            rhs[j] = torch.where(pick, rhs[k], rhs[j])
+        rows[k], rhs[k] = pivot_row, pivot_rhs
+        inv = 1.0 / rows[k][..., k]
+        for i in range(k + 1, 3):
+            m = rows[i][..., k] * inv
+            rows[i] = rows[i] - m[..., None] * rows[k]
+            rhs[i] = rhs[i] - m * rhs[k]
+    x2 = rhs[2] / rows[2][..., 2]
+    x1 = (rhs[1] - rows[1][..., 2] * x2) / rows[1][..., 1]
+    x0 = (rhs[0] - rows[0][..., 2] * x2 - rows[0][..., 1] * x1) / rows[0][..., 0]
+    x = torch.stack([x0, x1, x2], -1)
     solvable = torch.all(torch.isfinite(x), dim=-1)
     return torch.where(solvable[..., None], x, 0.0), solvable
-
-
-def _adjugate3(m: torch.Tensor) -> torch.Tensor:
-    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
-    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
-    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
-    return torch.stack([torch.stack([e * i - f * h, c * h - b * i, b * f - c * e], -1),
-                        torch.stack([f * g - d * i, a * i - c * g, c * d - a * f], -1),
-                        torch.stack([d * h - e * g, b * g - a * h, a * e - b * d], -1)], -2)
 
 
 def solve_pose(gm: GroundMap, vehicle: VehicleModel, x, y, yaw,

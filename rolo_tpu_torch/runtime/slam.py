@@ -87,22 +87,6 @@ def infer_rel_time(xyz: np.ndarray, scan_period: float) -> np.ndarray:
     return (rel / (2.0 * math.pi) * scan_period).astype(np.float32)
 
 
-def _infer_rings_t(xyz: torch.Tensor, n_scan: int, fov_up_deg: float = 15.0,
-                   fov_down_deg: float = -25.0) -> torch.Tensor:
-    """`infer_rings` on a tensor, where it lies."""
-    d = torch.linalg.vector_norm(xyz[:, :2], dim=1)
-    ang = torch.rad2deg(torch.atan2(xyz[:, 2], torch.clamp(d, min=1e-9)))
-    frac = (fov_up_deg - ang) / max(fov_up_deg - fov_down_deg, 1e-6)
-    return torch.clamp(torch.round(frac * (n_scan - 1)), 0, n_scan - 1).to(torch.int32)
-
-
-def _infer_rel_time_t(xyz: torch.Tensor, scan_period: float) -> torch.Tensor:
-    """`infer_rel_time` on a tensor, where it lies."""
-    ang = torch.atan2(xyz[:, 1], xyz[:, 0])
-    rel = torch.remainder(ang[:1] - ang, 2.0 * math.pi)
-    return (rel / (2.0 * math.pi) * scan_period).to(torch.float32)
-
-
 class CapacityExhausted(RuntimeError):
     """A fixed-capacity store dropped an event and
     StaticConfig.on_capacity == "error"."""
@@ -240,13 +224,18 @@ class SlamSystem:
 
     def _raw_scan_from_tensor(self, points: torch.Tensor, ring, rel_time, cap: int) -> RawScan:
         """The padded scan from a tensor, built where it lies (a frame already
-        on the card does not cross to the host)."""
+        on the card does not cross to the host). Rings and times it lacks are
+        inferred from a host copy by `infer_rings` / `infer_rel_time`, the
+        reference's f32 numpy arithmetic: computed by torch, a point halfway
+        between two rings (a VLP-16 has four such beams under the assumed
+        field of view) could round to the other one."""
         dev = self.device
         xyz = points.reshape(-1, points.shape[-1])[:, :3].to(dev, torch.float32)
-        ring = _infer_rings_t(xyz, self.cfg.sensor.n_scan) if ring is None else \
-            torch.as_tensor(ring, device=dev)
-        rel_time = _infer_rel_time_t(xyz, self.cfg.sensor.scan_period) if rel_time is None else \
-            torch.as_tensor(rel_time, device=dev)
+        host = xyz.cpu().numpy() if ring is None or rel_time is None else None
+        ring = torch.as_tensor(infer_rings(host, self.cfg.sensor.n_scan) if ring is None
+                               else ring, device=dev)
+        rel_time = torch.as_tensor(infer_rel_time(host, self.cfg.sensor.scan_period)
+                                   if rel_time is None else rel_time, device=dev)
         m = min(xyz.shape[0], cap)
         xyz_p = torch.zeros(cap, 3, device=dev)
         ring_p = torch.zeros(cap, dtype=torch.int32, device=dev)

@@ -15,7 +15,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..ops import sym3
-from ..ops.voxel_join import INVALID_PACK, keyed_matmul, pack_polar, pack_uniform
+from ..ops.voxel_join import (INVALID_PACK, keyed_matmul, pack_polar, pack_uniform,
+                              unpack_polar, unpack_uniform)
 
 _M32 = 0xFFFFFFFF
 
@@ -98,6 +99,14 @@ class VoxelMap(NamedTuple):
     cov6: torch.Tensor
     kappa: torch.Tensor
     valid: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.pack.shape[-1]
+
+    def coord(self, polar: bool) -> torch.Tensor:
+        """[..., V, 3] integer bin coordinates recovered from the packs."""
+        return unpack_polar(self.pack) if polar else unpack_uniform(self.pack)
 
 
 def _kappa_from_rbar(r_bar: torch.Tensor) -> torch.Tensor:

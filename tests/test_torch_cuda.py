@@ -10,20 +10,25 @@ conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import REL_TOL, plane_rel_err
 from torch_parity import KNN_CASES, knn_batch, lidar_cloud
 
-from rolo_tpu_torch.config import RegistrationConfig
+from rolo_tpu_torch import bench
+from rolo_tpu_torch.config import RegistrationConfig, load_config
 from rolo_tpu_torch.ops import cuda_build
 from rolo_tpu_torch.ops.knn_moments import knn_moments, knn_moments_torch
 from rolo_tpu_torch.ops.voxel_join import (INVALID_PACK, MAX_SHARED_KEYS, keyed_matmul,
                                            keyed_matmul_torch)
 from rolo_tpu_torch.registration.rotgicp import register_scan_pair
 from rolo_tpu_torch.runtime.platform import configure_precision
+from rolo_tpu_torch.sim.dataset import SimFrame
 from rolo_tpu_torch.voxel.knn import moment_table
 
 pytestmark = pytest.mark.cuda
@@ -95,6 +100,40 @@ def test_knn_moments_matches_plain(cuda, b, q, n, k):
     assert torch.equal(got[:, 0], want[:, 0])  # membership agrees bit for bit
     assert plane_rel_err(got, want) < REL_TOL
     assert torch.equal(got, again)  # no atomics: the same bits on every call
+
+
+@functools.lru_cache(maxsize=1)
+def _m2ud_cases():
+    """chip_smoke phase 14 (a)'s cases: both kernels on a featurized pair
+    of the M2UD sequence (scans 0 and 2 of a VLP-16 at 16 x 1,800, the
+    driver's ring order) at configs/m2ud's capacities, B = 1: the K1 build
+    [10, 8,192] and its polar and fine direct7 joins, K2 at Q = N = 8,192."""
+    cfg = load_config(list(chip_smoke.M2UD_CONFIGS))
+    dev = torch.device("cuda")
+    frames = [SimFrame(stamp, *(torch.as_tensor(a, device=dev) for a in (
+        xyz, ring.astype(np.int32), rel, gt_rot, gt_trans)))
+        for stamp, xyz, ring, rel, gt_rot, gt_trans in chip_smoke.m2ud_scans(
+            chip_smoke.m2ud_sim_config(cfg, 1 + chip_smoke.STRIDE), dev)]
+    pair = bench.stack_pairs([bench.featurize(f, cfg) for f in frames], frames, 1,
+                             chip_smoke.STRIDE)
+    return [c for c in chip_smoke.kernel_cases(cfg, *pair[:4]) if "SPMD" not in c["case"]]
+
+
+@pytest.mark.parametrize("name", ["keyed_sum", "knn_moments"])
+def test_m2ud_kernel_cases_match_plain(cuda, name):
+    counter = keyed_matmul if name == "keyed_sum" else knn_moments
+    cases = [c for c in _m2ud_cases() if c["name"] == name]
+    assert len(cases) == (3 if name == "keyed_sum" else 1)
+    for c in cases:
+        before = counter.launches
+        got = c["kernel"]()
+        want = c["plain"]()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1, c["case"]
+        assert plane_rel_err(got, want) < REL_TOL, c["case"]
+        if name == "knn_moments":
+            assert torch.equal(got[:, 0], want[:, 0])
+        assert torch.equal(got, c["kernel"]()), c["case"]
 
 
 @pytest.mark.parametrize("k", [1, 20, 32])
