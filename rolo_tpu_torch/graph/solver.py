@@ -43,6 +43,7 @@ from ..ops.linalg import (cholesky_solve_unrolled_mat, each, fixed_sum, inv_psd_
                           small_matmul as mm)
 from ..ops.pytree import tree_map
 from ..ops.segment import Segments, segment_sum, segments
+from ..runtime import profiling
 from .factors import FIRST_PRIOR_VARIANCES, ODOM_VARIANCES, BetweenFactors, PoseGraph
 
 
@@ -471,7 +472,7 @@ def _pcg(blocks: FactorBlocks, k: int, damping: float, active, g, cg_iterations:
     run = rz > floor
     steps = torch.zeros(run.shape, dtype=torch.int32, device=run.device)
     for _ in range(cg_iterations):
-        if not bool(run.any()):
+        if not profiling.host_read(run.any()):
             break
         ap = _matvec(blocks, p, damping) * active
         alpha = (rz / torch.clamp(dot(p, ap), min=1e-30))[..., None, None]
@@ -525,7 +526,7 @@ def solve_pose_graph(graph: PoseGraph, rot: torch.Tensor, trans: torch.Tensor, c
             # the reference also solves on the iteration that stops and then
             # discards the step; checking first gives the same poses
             done = done | (torch.abs(prev_err - err_here) <= gn_tol * (err0 + 1.0))
-            if bool(done.all()):
+            if profiling.host_read(done.all()):
                 break
         prev_err = err_here
         g = _gradient(blocks, k)

@@ -26,6 +26,7 @@ from ..geometry.se3 import SE3
 from ..ops.rows import read_row
 from ..pointcloud.cloud import PaddedCloud
 from ..pointcloud.features import voxel_downsample
+from ..runtime import profiling
 from ..voxel.knn import knn_indices
 
 if TYPE_CHECKING:  # annotation only: mapping imports this module
@@ -124,7 +125,7 @@ def icp_point2point(src: PaddedCloud, tgt: PaddedCloud, init_rot: torch.Tensor,
         new_trans = ct - new_rot @ cs
         step = SE3(rot, trans).inverse().compose(SE3(new_rot, new_trans)).as_matrix()
         rot, trans = new_rot, new_trans
-        if bool(torch.max(torch.abs(step - eye4)) < transformation_epsilon):
+        if profiling.host_read(torch.max(torch.abs(step - eye4)) < transformation_epsilon):
             break
 
     idx, _, d2 = nearest(rot, trans)

@@ -42,6 +42,7 @@ from ..pointcloud.cloud import PaddedCloud
 from ..pointcloud.features import voxel_downsample
 from ..prior import association as priormod
 from ..prior.association import PriorQueue, init_queue
+from ..runtime import profiling
 from ..runtime.platform import default_device
 from .keyframes import (KeyframeDB, add_keyframe, extract_submap, init_db, latest_pose,
                         should_add_keyframe)
@@ -161,7 +162,7 @@ def backend_step(state: BackendState, corner: PaddedCloud, surf: PaddedCloud,
     has_map = state.db.count > 0
     degen = torch.zeros(bsz, dtype=torch.bool, device=dev)
     iters = nfac = torch.zeros(bsz, dtype=torch.int32, device=dev)
-    if bool(has_map.any()):
+    if profiling.host_read(has_map.any()):
         sub_c, sub_s = extract_submap(
             state.db, xyz, scan_time, m.surrounding_keyframe_search_radius,
             m.surrounding_keyframe_recency_sec, max_nearby=m.surrounding_keyframe_max_nearby,
@@ -178,6 +179,9 @@ def backend_step(state: BackendState, corner: PaddedCloud, surf: PaddedCloud,
         degen = res.degenerate & has_map
         iters = torch.where(has_map, res.iterations, iters)
         nfac = torch.where(has_map, res.num_factors, nfac)
+        if profiling.tracing():  # the GN stopped at its cap unconverged
+            profiling.count("s2m_capped", has_map & ~res.converged
+                            & (res.iterations >= m.scan2map_max_iterations))
     rpy, xyz = constrain_transform(rpy, xyz, m.rotation_tolerance, m.z_tolerance)
     pose = _rpy_pose(rpy, xyz)
 
@@ -249,7 +253,8 @@ def solve_graph_host(state: BackendState, cfg: RoloConfig = None,
     graphs at once, at the bucket of its largest count, each masked by its
     own."""
     del cfg  # kept for the reference's signature
-    count = int(state.db.count.max()) if count_hint is None else int(count_hint)
+    count = (profiling.host_read(state.db.count.max(), int) if count_hint is None
+             else int(count_hint))
     if count < 1:
         return state._replace(pending_solve=torch.zeros_like(state.pending_solve))
     cap = state.db.capacity
@@ -307,14 +312,14 @@ def loop_closure_step(state: BackendState, cfg: RoloConfig) -> Tuple[BackendStat
     tgt_cap = min(lc.icp_tgt_capacity, st.max_submap_points)
     if lc.loop_close_type in ("sc", "all"):
         det = sc.detect_loop(state.scdb, lc)
-        if bool(det.found & (det.index != cur) & (state.db.count > 0)):
+        if profiling.host_read(det.found & (det.index != cur) & (state.db.count > 0)):
             factor = _try_close(state, cur, det.index, det.yaw_rad, True, src_cap, tgt_cap, cfg)
             state = _insert_loop(state, factor)
             closed = closed | factor.accepted
     if lc.loop_close_type in ("rs", "all"):
         prev_idx, found = loopmod.detect_loop_distance(
             state.db, state.loop_matched, lc.history_search_radius, lc.history_search_time_diff)
-        if bool(found):
+        if profiling.host_read(found):
             factor = _try_close(state, cur, prev_idx, 0.0, False, src_cap, tgt_cap, cfg)
             state = _insert_loop(state, factor)
             closed = closed | factor.accepted
@@ -340,7 +345,7 @@ def external_loop_step(state: BackendState, time_cur, time_prev, cfg: RoloConfig
     key_prev = torch.max(torch.where(valid & (db.time <= time_prev), idx, 0))
     found = ((db.count >= 2) & (torch.abs(time_cur - time_prev) >= lc.history_search_time_diff)
              & (key_cur != key_prev) & ~read_row(state.loop_matched, key_cur))
-    if not bool(found):
+    if not profiling.host_read(found):
         return state, torch.tensor(False, device=dev)
     factor = _try_close(state, key_cur.to(torch.int32), key_prev.to(torch.int32), 0.0, False,
                         st.max_submap_points // 2, st.max_submap_points, cfg)
@@ -365,7 +370,7 @@ def prior_step(state: BackendState, ground_now: PaddedCloud, cfg: RoloConfig
                 & (db.count > 0))
     score = torch.where(eligible, d2, float("inf"))
     pick = torch.argmin(score)
-    if not bool(torch.isfinite(read_row(score, pick))):
+    if not profiling.host_read(torch.isfinite(read_row(score, pick))):
         return state, torch.tensor(False, device=dev)
     linked = read_row(linked_all, pick)
     factor = priormod.associate_prior(

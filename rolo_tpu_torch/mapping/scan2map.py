@@ -28,6 +28,7 @@ from ..geometry import so3
 from ..ops.eig3 import eigh3
 from ..ops.linalg import each, fixed_sum, matmul_each, small_matmul, solve_psd
 from ..pointcloud.cloud import PaddedCloud
+from ..runtime import profiling
 from ..voxel.knn import knn_indices
 
 
@@ -313,11 +314,12 @@ def scan2map_optimize(rpy0: torch.Tensor, xyz0: torch.Tensor, corner_pts, corner
             break
         if use_cand:
             stale = moved_far(rpy, xyz, cand) & active
-            flags = torch.cat([active.any()[None], stale]).tolist()
+            flags = profiling.host_read(torch.cat([active.any()[None], stale]),
+                                        torch.Tensor.tolist)
             if not flags[0]:
                 break
             stale = stale if any(flags[1:]) else None
-        elif not bool(active.any()):
+        elif not profiling.host_read(active.any()):
             break
     return Scan2MapResult(_rpy_matrix(rpy), xyz, rpy, degen, iters, nfac, conv)
 

@@ -19,6 +19,7 @@ import torch
 from ..config import PriorConfig
 from ..geometry import so3
 from ..ops.linalg import small_matmul
+from ..runtime import profiling
 from ..runtime.platform import default_device
 from .ground import GroundMap, average_height_at, contact_point, nearest_point_xy
 
@@ -222,7 +223,7 @@ def solve_pose(gm: GroundMap, vehicle: VehicleModel, x, y, yaw,
     conv = torch.zeros(x.shape, dtype=torch.bool, device=dev)
     for _ in range(cfg.max_iters):
         run = ~conv
-        if not bool(run.any()):
+        if not profiling.host_read(run.any()):
             break
         res, jac = _residual_and_jacobian(gm, wheels, x, y, yaw, z, r, k_spring, g)
         c0 = _dot(res, res)

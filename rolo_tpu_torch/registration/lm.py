@@ -7,8 +7,10 @@ Here each loop is a Python loop up to its static cap over a batch of B
 instances, with per-instance masks: an instance whose loop has ended keeps
 its state through `torch.where`, exactly as the vmapped select does, so a
 batch gives the same result as per-instance runs. The outer loops make one
-host check per iteration (`running.any()`) to stop once every instance is
-done; the inner lambda trials run to their cap without one.
+host check per iteration (`running.any()`, a `profiling.host_read`) to stop
+once every instance is done; the inner lambda trials run to their cap
+without one. In an active tracer each LM call counts its outer iterations
+and its lambda trials, run and used (`_count_trials`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from ..geometry import se3, so3
 from ..ops.linalg import small_matmul, solve_psd
+from ..runtime import profiling
 from . import gicp
 from .gicp import Correspondences, GICPContext
 
@@ -66,14 +69,16 @@ def _trans_small(delta_t: torch.Tensor, trans_eps: float) -> torch.Tensor:
 
 
 def _lm_inner(h, b, y0, lam, state: Tuple[torch.Tensor, ...], delta0: torch.Tensor,
-              try_step: Callable, small_step: Callable, max_inner: int):
+              try_step: Callable, small_step: Callable, max_inner: int, running: torch.Tensor):
     """Batched inner lambda-trial loop (lm.py:56-90): up to max_inner trials,
-    each instance stopping at its first accepted (or converged) trial.
-    Returns (state, lam, done, delta)."""
+    each running instance stopping at its first accepted (or converged)
+    trial; the others do not search (their results are not taken).
+    Returns (state, lam, done, delta, nu), nu = 2^(1 + the trials each
+    instance ran while searching)."""
     n = h.shape[-1]
     eye = torch.eye(n, dtype=h.dtype, device=h.device)
     nu = torch.full_like(lam, 2.0)
-    done = torch.zeros_like(lam, dtype=torch.bool)
+    done = ~running
     delta = delta0
     for _ in range(max_inner):
         run = ~done
@@ -85,13 +90,27 @@ def _lm_inner(h, b, y0, lam, state: Tuple[torch.Tensor, ...], delta0: torch.Tens
         small = small_step(d_delta)
         lam_acc = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
         new_lam = torch.where(accept, lam_acc, nu * lam)
-        new_nu = torch.where(accept, nu, 2.0 * nu)
         state = select(run & accept, cand, state)
         lam = torch.where(run, new_lam, lam)
-        nu = torch.where(run, new_nu, nu)
+        # nu doubles on each trial run: the next lambda's factor after a
+        # rejection; after an acceptance the instance is done and nu unread
+        nu = torch.where(run, 2.0 * nu, nu)
         delta = select(run, d_delta, delta)
         done = torch.where(run, accept | small, done)
-    return state, lam, done, delta
+    return state, lam, done, delta, nu
+
+
+def _count_trials(iters: torch.Tensor, nus: list, max_inner: int) -> None:
+    """An LM call's counters in the active tracer: `lm_iterations`, each
+    instance's outer iterations; `lm_trials`, the lambda trials the batch
+    ran (max_inner an instance an outer iteration); `lm_trials_used`, those
+    each instance ran while searching, from nu = 2^(1 + trials) of every
+    outer iteration (`_lm_inner`)."""
+    profiling.count("lm_iterations", iters)
+    profiling.count("lm_trials", max_inner * iters.numel() * len(nus))
+    if nus:
+        profiling.count("lm_trials_used",
+                        torch.log2(torch.stack(nus)).sum(dim=0).round() - len(nus))
 
 
 def _lm_register(bind: Callable, linearize: Callable, error: Callable, retract: Callable,
@@ -111,9 +130,10 @@ def _lm_register(bind: Callable, linearize: Callable, error: Callable, retract: 
     h_out = torch.eye(dof, dtype=dt, device=dev).expand(bsz, dof, dof)
     err = torch.zeros(bsz, dtype=dt, device=dev)
     iters = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    nus = [] if profiling.tracing() else None
     for _ in range(max_outer):
         running = running0 & ~conv & ~failed
-        if not bool(running.any()):
+        if not profiling.host_read(running.any()):
             break
         corr = bind(rot, trans)
         y0, h, b = linearize(corr, rot, trans)
@@ -125,8 +145,8 @@ def _lm_register(bind: Callable, linearize: Callable, error: Callable, retract: 
             cand_rot, cand_trans, delta = retract(d, cur_rot, cur_trans)
             return (cand_rot, cand_trans), delta, error(corr, cand_rot, cand_trans)
 
-        (n_rot, n_trans), n_lam, done, delta = _lm_inner(
-            h, b, y0, lam_i, (rot, trans), delta0, try_step, small, max_inner)
+        (n_rot, n_trans), n_lam, done, delta, nu = _lm_inner(
+            h, b, y0, lam_i, (rot, trans), delta0, try_step, small, max_inner, running)
         rot = select(running, n_rot, rot)
         trans = select(running, n_trans, trans)
         lam = torch.where(running, n_lam, lam)
@@ -135,6 +155,10 @@ def _lm_register(bind: Callable, linearize: Callable, error: Callable, retract: 
         h_out = select(running, h, h_out)
         err = torch.where(running, y0, err)
         iters = iters + running.to(torch.int32)
+        if nus is not None:
+            nus.append(nu)
+    if nus is not None:
+        _count_trials(iters, nus, max_inner)
     return LMResult(rot, trans, h_out, err, iters, conv, failed)
 
 
@@ -219,7 +243,7 @@ def gn_register_se3(ctx: GICPContext, rot0, trans0, max_outer: int = MAX_OUTER,
     iters = torch.zeros(bsz, dtype=torch.int32, device=dev)
     for _ in range(max_outer):
         running = running0 & ~conv
-        if not bool(running.any()):
+        if not profiling.host_read(running.any()):
             break
         corr = gicp.update_correspondences(ctx, rot, trans)
         y0, h, b = gicp.se3_linearize(ctx, corr, rot, trans)
@@ -258,9 +282,10 @@ def lm_translation(ctx: GICPContext, corr: Correspondences, t0, init_guess, last
     iters = torch.zeros(bsz, dtype=torch.int32, device=dev)
     zero3 = torch.zeros_like(t0)
     args = (init_guess, last_t0, interval_tn, interval_tn_1, ct_lambda)
+    nus = [] if profiling.tracing() else None
     for _ in range(max_outer):
         running = running0 & ~conv & ~failed
-        if not bool(running.any()):
+        if not profiling.host_read(running.any()):
             break
         y0, h, b = ct_lin(ctx, corr, t, *args)
         diag_max = torch.amax(torch.abs(torch.diagonal(h, dim1=-2, dim2=-1)), dim=-1)
@@ -272,9 +297,9 @@ def lm_translation(ctx: GICPContext, corr: Correspondences, t0, init_guess, last
             cand = cur_t + delta_t
             return (cand,), delta_t, ct_err(ctx, corr, cand, *args)
 
-        (n_t,), n_lam, done, delta = _lm_inner(
+        (n_t,), n_lam, done, delta, nu = _lm_inner(
             h, b, y0, lam_i, (t,), zero3, try_step,
-            lambda dt_: _trans_small(dt_, trans_eps), max_inner)
+            lambda dt_: _trans_small(dt_, trans_eps), max_inner, running)
         t = select(running, n_t, t)
         lam = torch.where(running, n_lam, lam)
         conv = torch.where(running, done & _trans_small(delta, trans_eps), conv)
@@ -282,6 +307,10 @@ def lm_translation(ctx: GICPContext, corr: Correspondences, t0, init_guess, last
         h_out = select(running, h, h_out)
         err = torch.where(running, y0, err)
         iters = iters + running.to(torch.int32)
+        if nus is not None:
+            nus.append(nu)
+    if nus is not None:
+        _count_trials(iters, nus, max_inner)
     return CTResult(t, h_out, err, iters, conv, failed)
 
 
@@ -310,7 +339,7 @@ def lm_translation_rebind(ctx: GICPContext, rot, t0, init_guess, last_t0, interv
     res = do_round(t0, running0)
     moved = running0
     for _ in range(1, rebind_rounds):
-        if not bool(moved.any()):
+        if not profiling.host_read(moved.any()):
             break
         nxt = do_round(res.trans, moved)
         still = torch.amax(torch.abs(nxt.trans - res.trans), dim=-1) > 10.0 * trans_eps

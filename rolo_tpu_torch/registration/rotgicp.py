@@ -3,7 +3,9 @@
 polar voxel map of the target (kernel K1), alternating SO(3) LM and
 continuous-time translation LM, and a fine uniform-voxel translation stage;
 and `register_se3`, full SE(3) VGICP on the same covariances and map.
-Every function takes a batch of B scan pairs.
+Every function takes a batch of B scan pairs. In an active tracer
+(`runtime.profiling`) the stages are the spans `frontend.rotation`,
+`frontend.translation` (each alternation round) and `frontend.fine`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from ..config import RegistrationConfig
 from ..ops import sym3
 from ..ops.linalg import small_matmul
+from ..runtime import profiling
 from ..voxel.knn import estimate_cov6
 from ..voxel.voxelmap import build_voxel_map
 from . import gicp, lm
@@ -64,27 +67,29 @@ def register_features(src_xyz, src_mask, src_cov, tgt_xyz, tgt_mask, tgt_cov,
     ct_rebinds = min(cfg.ct_rebind_rounds, 2) if multi else cfg.ct_rebind_rounds
 
     def one_round(rot, t, active):
-        shift = small_matmul(rot.transpose(1, 2), t[..., None])[..., 0]
-        ctx_r = gicp.make_context(src_xyz + shift[:, None, :], src_mask, src_cov, vmap,
-                                  polar_res=polar_res, resolution=cfg.voxel_resolution,
-                                  neighbor_search=cfg.neighbor_search)
-        rot_res = lm.lm_register_rotation(
-            ctx_r, rot, zero3, max_outer=cfg.max_outer_iterations,
-            max_inner=cfg.lm_max_inner_iterations, rot_eps=cfg.rotation_epsilon,
-            trans_eps=cfg.transformation_epsilon,
-            init_lambda_factor=cfg.lm_init_lambda_factor, active=active,
-            linearize_fn=so3_lin, error_fn=err_fn)
+        with profiling.span("frontend.rotation", sync=lambda: rot_res.rot):
+            shift = small_matmul(rot.transpose(1, 2), t[..., None])[..., 0]
+            ctx_r = gicp.make_context(src_xyz + shift[:, None, :], src_mask, src_cov, vmap,
+                                      polar_res=polar_res, resolution=cfg.voxel_resolution,
+                                      neighbor_search=cfg.neighbor_search)
+            rot_res = lm.lm_register_rotation(
+                ctx_r, rot, zero3, max_outer=cfg.max_outer_iterations,
+                max_inner=cfg.lm_max_inner_iterations, rot_eps=cfg.rotation_epsilon,
+                trans_eps=cfg.transformation_epsilon,
+                init_lambda_factor=cfg.lm_init_lambda_factor, active=active,
+                linearize_fn=so3_lin, error_fn=err_fn)
         rot = rot_res.rot
-        ctx_t = gicp.make_context(_rotate(src_xyz, rot), src_mask,
-                                  sym3.congruence(rot, src_cov), vmap, polar_res=polar_res,
-                                  resolution=cfg.voxel_resolution,
-                                  neighbor_search=cfg.neighbor_search)
-        ct_res = lm.lm_translation_rebind(
-            ctx_t, eye, t, zero3, last_translation, interval_tn, interval_tn_1,
-            cfg.ct_lambda, rebind_rounds=ct_rebinds, max_outer=ct_outer,
-            max_inner=cfg.lm_max_inner_iterations, trans_eps=cfg.transformation_epsilon,
-            init_lambda_factor=cfg.lm_init_lambda_factor, active=active,
-            ct_linearize_fn=ct_lin, ct_error_fn=ct_err)
+        with profiling.span("frontend.translation", sync=lambda: ct_res.trans):
+            ctx_t = gicp.make_context(_rotate(src_xyz, rot), src_mask,
+                                      sym3.congruence(rot, src_cov), vmap, polar_res=polar_res,
+                                      resolution=cfg.voxel_resolution,
+                                      neighbor_search=cfg.neighbor_search)
+            ct_res = lm.lm_translation_rebind(
+                ctx_t, eye, t, zero3, last_translation, interval_tn, interval_tn_1,
+                cfg.ct_lambda, rebind_rounds=ct_rebinds, max_outer=ct_outer,
+                max_inner=cfg.lm_max_inner_iterations, trans_eps=cfg.transformation_epsilon,
+                init_lambda_factor=cfg.lm_init_lambda_factor, active=active,
+                ct_linearize_fn=ct_lin, ct_error_fn=ct_err)
         return rot, ct_res.trans, rot_res, ct_res
 
     all_on = torch.ones(bsz, dtype=torch.bool, device=dev)
@@ -98,24 +103,25 @@ def register_features(src_xyz, src_mask, src_cov, tgt_xyz, tgt_mask, tgt_cov,
         moved = torch.linalg.vector_norm(t - prev_t, dim=-1)
         need = moved > torch.clamp(0.25 * torch.linalg.vector_norm(t, dim=-1), min=0.15)
         prev_t = t
-        if bool(need.any()):
+        if profiling.host_read(need.any()):
             r2, t2, rr2, ct2 = one_round(rot, t, need)
             rot, t = lm.select(need, r2, rot), lm.select(need, t2, t)
             rot_res, ct_res = lm.select(need, rr2, rot_res), lm.select(need, ct2, ct_res)
 
     if cfg.ct_fine_resolution > 0:
-        vmap_fine = build_voxel_map(tgt_xyz, tgt_cov, tgt_mask, voxel_capacity, polar_res=None,
-                                    resolution=cfg.ct_fine_resolution)
-        ctx_f = gicp.make_context(_rotate(src_xyz, rot), src_mask,
-                                  sym3.congruence(rot, src_cov), vmap_fine, polar_res=None,
-                                  resolution=cfg.ct_fine_resolution,
-                                  neighbor_search=cfg.ct_fine_neighbors)
-        ct_res = lm.lm_translation_rebind(
-            ctx_f, eye, t, zero3, last_translation, interval_tn, interval_tn_1,
-            cfg.ct_lambda, rebind_rounds=ct_rebinds, max_outer=ct_outer,
-            max_inner=cfg.lm_max_inner_iterations, trans_eps=cfg.transformation_epsilon,
-            init_lambda_factor=cfg.lm_init_lambda_factor, ct_linearize_fn=ct_lin,
-            ct_error_fn=ct_err)
+        with profiling.span("frontend.fine", sync=lambda: ct_res.trans):
+            vmap_fine = build_voxel_map(tgt_xyz, tgt_cov, tgt_mask, voxel_capacity,
+                                        polar_res=None, resolution=cfg.ct_fine_resolution)
+            ctx_f = gicp.make_context(_rotate(src_xyz, rot), src_mask,
+                                      sym3.congruence(rot, src_cov), vmap_fine, polar_res=None,
+                                      resolution=cfg.ct_fine_resolution,
+                                      neighbor_search=cfg.ct_fine_neighbors)
+            ct_res = lm.lm_translation_rebind(
+                ctx_f, eye, t, zero3, last_translation, interval_tn, interval_tn_1,
+                cfg.ct_lambda, rebind_rounds=ct_rebinds, max_outer=ct_outer,
+                max_inner=cfg.lm_max_inner_iterations, trans_eps=cfg.transformation_epsilon,
+                init_lambda_factor=cfg.lm_init_lambda_factor, ct_linearize_fn=ct_lin,
+                ct_error_fn=ct_err)
         t = ct_res.trans
 
     return ScanPairResult(rot=rot, trans=t, rot_error=rot_res.error, ct_error=ct_res.error,

@@ -17,6 +17,7 @@ from ..pointcloud.ground_seg import segment_ground
 from ..pointcloud.projection import RingImage
 from ..prior import association, ground
 from ..prior.vehicle import VehicleModel
+from . import profiling
 
 
 def ground_update(live: ground.LiveGroundMap, ring_img: RingImage, rot: torch.Tensor,
@@ -35,14 +36,18 @@ def prior_cycle(fusion_state: fusion.FusionState, stamp, backend_state: backend.
     performPriorAssociation: the filter's future pose in the world, the
     contact solve and ground patch there, the observation recorded against
     the latest keyframe, then one association pass against the ground
-    around the current pose. Returns (backend_state, matched)."""
-    fut = fusion.predict_future(fusion_state, cfg.filter)
+    around the current pose. Returns (backend_state, matched). In an active
+    tracer the rollout and the contact solve are the spans `prior.predict`
+    and `prior.contact`."""
+    with profiling.span("prior.predict", sync=lambda: fut.final_pos):
+        fut = fusion.predict_future(fusion_state, cfg.filter)
     fused = fusion.fused_pose(fusion_state, stamp, cfg.filter)
     world_pos = fused.rot @ fut.final_pos + fused.trans
     world_rot = fused.rot @ so3.quat_to_matrix(fut.final_quat)
     yaw = torch.atan2(world_rot[1, 0], world_rot[0, 0])
-    obs = association.compute_prior(ground_map, vehicle, world_pos[0], world_pos[1], yaw,
-                                     cfg.prior, 2048)
+    with profiling.span("prior.contact", sync=lambda: obs.success):
+        obs = association.compute_prior(ground_map, vehicle, world_pos[0], world_pos[1], yaw,
+                                         cfg.prior, 2048)
     obs = obs._replace(success=obs.success & fut.valid & fused.valid)
     backend_state = backend.record_prior_observation(backend_state, obs, obs_time=stamp, cfg=cfg)
     patch = ground.extract_patch(ground_map, backend_state.xyz[:2],

@@ -115,7 +115,7 @@ def run_frames(slam: SlamSystem, frames: Iterable,
     res = SequenceResult(
         n_scans=n, wall_s=wall, scans_per_s=n / max(wall, 1e-9),
         drop_counts=dict(slam.drop_counts),
-        stage_ms={k: v["mean_ms"] for k, v in slam.timers.summary().items()},
+        stage_ms={k: v["mean_ms"] for k, v in slam.timers.summary().items() if "mean_ms" in v},
         n_keyframes=int(st.db.count), n_loop_factors=int(st.graph.loops.count),
         n_prior_factors=int(st.graph.priors.count),
     )

@@ -40,6 +40,7 @@ from ..prior import vehicle as prior_vehicle
 from . import io as rio
 from .cycles import ground_update, prior_cycle
 from .platform import configure_precision, default_device
+from . import profiling
 from .profiling import StageTimers
 
 
@@ -133,11 +134,11 @@ class SlamSystem:
         # the device cannot resolve a scan period at UNIX-epoch magnitudes
         self._epoch: Optional[float] = None
 
-        # per-stage wall clock; with sync_stages each stage waits for its
-        # own outputs, so stage times hold the device time (at an
-        # end-to-end cost)
+        # per-stage wall clock; with sync_stages (the tracer's switch) each
+        # stage waits for its own outputs, so stage times hold the device
+        # time (at an end-to-end cost), and the stages' spans and counters
+        # are recorded
         self.timers = StageTimers()
-        self.sync_stages = False
 
         self.drop_counts = dict.fromkeys(_DROP_CATEGORIES, 0)
         self._warned_drops = set()
@@ -161,6 +162,7 @@ class SlamSystem:
         # has been deferred
         self._bg_queue: List[str] = []
         self._bg_deferred = 0
+        self._bg_enqueued: Dict[str, int] = {}  # task -> the scan it was queued on
         # True once a loop / prior / external program ran since the last solve
         self._graph_dirty = False
         self._next_solve_check = 0.0
@@ -174,6 +176,17 @@ class SlamSystem:
         self._published_host = None
         self._published_layout: List[tuple] = []
         self._published_event = None
+
+    @property
+    def sync_stages(self) -> bool:
+        """Trace the stages (`StageTimers.tracing`): each syncs on its own
+        outputs and opens a profiler range, and the modules' spans and
+        counters are recorded. Off by default."""
+        return self.timers.tracing
+
+    @sync_stages.setter
+    def sync_stages(self, on: bool) -> None:
+        self.timers.tracing = bool(on)
 
     # -- ingest ----------------------------------------------------------
 
@@ -206,8 +219,8 @@ class SlamSystem:
         if rel_time is None:
             rel_time = infer_rel_time(xyz, cfg.sensor.scan_period)
         m = min(len(xyz), cap)
-        if self._ingest_event is not None:
-            self._ingest_event.synchronize()  # the last scan's copy has left the buffer
+        if self._ingest_event is not None:  # the last scan's copy has left the buffer
+            profiling.host_read(self._ingest_event, torch.cuda.Event.synchronize)
         xyz_p, ring_p, t_p, mask = self._host_views(cap)
         xyz_p[:m], xyz_p[m:] = xyz[:m], 0.0
         ring_p[:m], ring_p[m:] = np.asarray(ring)[:m], 0
@@ -343,8 +356,7 @@ class SlamSystem:
         # host knows when it dispatched one.
         if cfg.loop.enable and stamp - self._last_loop_time >= 1.0 / cfg.loop.frequency_hz:
             self._last_loop_time = stamp
-            if "loop" not in self._bg_queue:
-                self._bg_queue.append("loop")
+            self._enqueue("loop")
         # the prior cycle is cheap and runs inline at its 5 Hz cadence: a
         # scheduler slot would starve the expensive tasks onto mapping scans
         if (cfg.prior.enable and (self.ground_map is not None or self._mapping_steps >= 1)
@@ -354,13 +366,12 @@ class SlamSystem:
         if self._graph_dirty and self._mapping_steps >= 1 and stamp >= self._next_solve_check:
             self._next_solve_check = stamp + cfg.mapping.graph_solve_check_interval
             self._graph_dirty = False
-            if "solve" not in self._bg_queue:
-                self._bg_queue.append("solve")
+            self._enqueue("solve")
 
         mapping_fired = "mapped_trans" in out
         if self._bg_queue and (not mapping_fired or self._bg_deferred >= self.BG_MAX_DEFER):
             self._bg_deferred = 0
-            self._dispatch_background(self._bg_queue.pop(0), stamp, out, prof)
+            self._dispatch_background(self._dequeue(), stamp, out, prof)
         elif self._bg_queue:
             self._bg_deferred += 1
 
@@ -381,6 +392,20 @@ class SlamSystem:
         self.front_positions.append(front_trans)
         self.front_rots.append(front_rot)
         return out
+
+    def _enqueue(self, task: str) -> None:
+        if task not in self._bg_queue:
+            self._bg_queue.append(task)
+            self._bg_enqueued[task] = len(self.times)
+
+    def _dequeue(self) -> str:
+        """The queue's head; traced, the scans it waited from its enqueue
+        (`scheduler.wait_scans`)."""
+        task = self._bg_queue.pop(0)
+        queued = self._bg_enqueued.pop(task, None)
+        if queued is not None:
+            self.timers.count("scheduler.wait_scans", len(self.times) - queued)
+        return task
 
     def _copy_out(self, value: torch.Tensor, host: Optional[torch.Tensor] = None):
         """Start a device -> host copy of `value` into pinned memory (`host`
@@ -444,7 +469,8 @@ class SlamSystem:
                                                           cfg)
             self._graph_dirty = True
         elif task == "solve":
-            with self.timers.stage("graph_solve"):
+            with self.timers.stage("graph_solve",
+                                   sync=(lambda: self.backend_state.xyz) if prof else None):
                 self.backend_state = backend.solve_graph_host(
                     self.backend_state, cfg, count_hint=self._mapping_steps + 1)
 
@@ -472,12 +498,13 @@ class SlamSystem:
         pending graph solve (loops near the end of a run find no later
         keyframe to trigger one) and check the capacities. Idempotent."""
         while self._bg_queue:
-            self._dispatch_background(self._bg_queue.pop(0),
+            self._dispatch_background(self._dequeue(),
                                       self._last_stamp if self._last_stamp is not None else 0.0,
                                       {}, False)
         if self._graph_dirty or bool(self.backend_state.pending_solve):
             self._graph_dirty = False
-            with self.timers.stage("graph_solve"):
+            with self.timers.stage("graph_solve", sync=(lambda: self.backend_state.xyz)
+                                   if self.sync_stages else None):
                 self.backend_state = backend.solve_graph_host(self.backend_state, self.cfg)
         self._check_capacity()
 

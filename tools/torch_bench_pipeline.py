@@ -166,7 +166,7 @@ def run(frames, cfg, warmup: int, synced: bool = False, device=None,
     ate_kf = metrics.ate(kp[ia], gt[ib]) if len(ia) >= 3 else None
     stage = {k: {"mean_ms": round(v["mean_ms"], 3), "p50_ms": round(v["p50_ms"], 3),
                  "count": v["count"]}
-             for k, v in slam.timers.summary().items()}
+             for k, v in slam.timers.summary().items() if "mean_ms" in v}
 
     step = frontend_step(slam, frames[-1])
     flops = step_flops(step)
