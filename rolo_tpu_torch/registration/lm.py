@@ -10,11 +10,14 @@ batch gives the same result as per-instance runs. The outer loops make one
 host check per iteration (`running.any()`, a `profiling.host_read`) to stop
 once every instance is done; the inner lambda trials run to their cap
 without one. In an active tracer each LM call counts its outer iterations
-and its lambda trials, run and used (`_count_trials`).
+and its lambda trials, run and used (`_count_trials`). On the card the CT
+translation LM replays each outer iteration as a captured CUDA graph
+(`_CTGraph`), so the host launches none of its kernels.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -257,6 +260,169 @@ def gn_register_se3(ctx: GICPContext, rot0, trans0, max_outer: int = MAX_OUTER,
     return LMResult(rot, trans, h_out, err, iters, conv, torch.zeros_like(conv))
 
 
+class _CTProblem(NamedTuple):
+    """The operands of one CT translation solve, fixed over its outer loop."""
+
+    ctx: GICPContext
+    corr: Correspondences
+    init_guess: torch.Tensor  # [B, 3]
+    last_t0: torch.Tensor  # [B, 3]
+    interval_tn: torch.Tensor  # [B]
+    interval_tn_1: torch.Tensor  # [B]
+    running0: torch.Tensor  # [B] bool: the instances that iterate
+
+
+class _CTState(NamedTuple):
+    """The CT translation LM's state between outer iterations."""
+
+    t: torch.Tensor  # [B, 3]
+    lam: torch.Tensor  # [B]
+    conv: torch.Tensor  # [B] bool
+    failed: torch.Tensor  # [B] bool
+    h_out: torch.Tensor  # [B, 6, 6]
+    err: torch.Tensor  # [B]
+    iters: torch.Tensor  # [B] int32
+    running: torch.Tensor  # [B] bool: running0 & ~conv & ~failed
+
+
+class _CTConsts(NamedTuple):
+    ct_lambda: float
+    max_inner: int
+    trans_eps: float
+    init_lambda_factor: float
+
+
+def _ct_iteration(p: _CTProblem, s: _CTState, c: _CTConsts, ct_lin: Callable,
+                  ct_err: Callable) -> Tuple[_CTState, torch.Tensor]:
+    """One outer iteration of the CT translation LM (lm.py:270-300):
+    linearize at s.t, the lambda trials, the running instances' selects.
+    Returns the next state and the trials' nu (`_count_trials`)."""
+    args = (p.init_guess, p.last_t0, p.interval_tn, p.interval_tn_1, c.ct_lambda)
+    y0, h, b = ct_lin(p.ctx, p.corr, s.t, *args)
+    diag_max = torch.amax(torch.abs(torch.diagonal(h, dim1=-2, dim2=-1)), dim=-1)
+    lam_i = torch.where(s.lam < 0, c.init_lambda_factor * diag_max, s.lam)
+
+    def try_step(d):
+        delta_t = se3.exp(d).trans
+        cand = s.t + delta_t
+        return (cand,), delta_t, ct_err(p.ctx, p.corr, cand, *args)
+
+    running = s.running
+    (n_t,), n_lam, done, delta, nu = _lm_inner(
+        h, b, y0, lam_i, (s.t,), torch.zeros_like(s.t), try_step,
+        lambda dt_: _trans_small(dt_, c.trans_eps), c.max_inner, running)
+    conv = torch.where(running, done & _trans_small(delta, c.trans_eps), s.conv)
+    failed = torch.where(running, ~done, s.failed)
+    return _CTState(select(running, n_t, s.t), torch.where(running, n_lam, s.lam), conv, failed,
+                    select(running, h, s.h_out), torch.where(running, y0, s.err),
+                    s.iters + running.to(torch.int32), p.running0 & ~conv & ~failed), nu
+
+
+def _ct_loop(step: Callable, state: _CTState, max_outer: int, nus: Optional[list]):
+    """Up to max_outer steps, each after a host check that an instance still
+    runs. Returns (the last state, the steps taken)."""
+    n = 0
+    while n < max_outer and profiling.host_read(state.running.any()):
+        state, nu = step(state)
+        n += 1
+        if nus is not None:
+            nus.append(nu)
+    return state, n
+
+
+def _compact(x: torch.Tensor) -> torch.Tensor:
+    """x with each expanded (stride-0) dim cut to its one slot."""
+    for d in range(x.dim()):
+        if x.stride(d) == 0:
+            x = x.narrow(d, 0, 1)
+    return x
+
+
+def _operands(p: _CTProblem) -> Tuple[torch.Tensor, ...]:
+    """The tensors gicp's CT objective and the loop read: of the context
+    only the source points."""
+    return (p.ctx.src_t, *p.corr, *p[2:])
+
+
+class _CTGraph:
+    """`_ct_iteration` on gicp's own objective, captured once as a CUDA graph
+    over static buffers. The problem's buffers are laid out as the operands
+    of the call that captured it, strides included (an expanded dim stays a
+    stride-0 view), so every kernel reads what it reads in the eager loop
+    and a replay gives the eager loop's bits. Each replay advances the state
+    buffers by one outer iteration in place; `nu` is the replay's output."""
+
+    WARMUP = 3
+
+    def __init__(self, p: _CTProblem, s: _CTState, c: _CTConsts):
+        ops = _operands(p)
+        self.inputs = [torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
+                       for x in map(_compact, ops)]
+        views = [buf.expand(x.shape) for buf, x in zip(self.inputs, ops)]
+        # the objective reads no mask, covariance or map
+        ctx = p.ctx._replace(src_t=views[0], src_mask=None, src_cov6=None, vmap=None)
+        problem = _CTProblem(ctx, Correspondences(*views[1:4]), *views[4:])
+        self.state = _CTState(*(torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                                for x in s))
+        self.load(p, s)
+        dev = s.t.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                _ct_iteration(problem, self.state, c, gicp.ct_linearize, gicp.ct_error)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            nxt, self.nu = _ct_iteration(problem, self.state, c, gicp.ct_linearize,
+                                         gicp.ct_error)
+            for buf, x in zip(self.state, nxt):
+                buf.copy_(x)
+
+    def load(self, p: _CTProblem, s: _CTState) -> None:
+        """Copy a call's operands and initial state into the buffers."""
+        for buf, x in zip(self.inputs, _operands(p)):
+            buf.copy_(_compact(x))
+        for buf, x in zip(self.state, s):
+            buf.copy_(x)
+
+
+# captured iterations by (constants, algorithms, operand layouts): each
+# configuration's shapes capture once, into the graph's own memory pool
+_CT_GRAPHS: dict = {}
+
+
+def _ct_graphed(p: _CTProblem, s: _CTState, c: _CTConsts, max_outer: int,
+                nus: Optional[list]):
+    """`_ct_loop` by replays of the key's `_CTGraph`, captured at its first
+    use. Returns clones of the state: the buffers are the next call's."""
+    key = (c, torch.are_deterministic_algorithms_enabled(),
+           tuple((x.shape, x.stride(), x.dtype, x.device) for x in _operands(p)),
+           tuple((x.shape, x.dtype) for x in s))
+    g = _CT_GRAPHS.get(key)
+    if g is None:
+        g = _CT_GRAPHS[key] = _CTGraph(p, s, c)
+    else:
+        g.load(p, s)
+
+    def replay(state):
+        g.graph.replay()
+        return state, (g.nu if nus is None else g.nu.clone())
+
+    state, n = _ct_loop(replay, g.state, max_outer, nus)
+    return _CTState(*(x.clone() for x in state)), n
+
+
+def _ct_eager(p: _CTProblem, s: _CTState, c: _CTConsts, max_outer: int, nus: Optional[list],
+              ct_lin: Optional[Callable] = None, ct_err: Optional[Callable] = None):
+    """`_ct_loop` over `_ct_iteration` run eagerly, on the hooks or on
+    gicp's own objective."""
+    step = functools.partial(_ct_iteration, p, c=c,
+                             ct_lin=ct_lin if ct_lin is not None else gicp.ct_linearize,
+                             ct_err=ct_err if ct_err is not None else gicp.ct_error)
+    return _ct_loop(step, s, max_outer, nus)
+
+
 def lm_translation(ctx: GICPContext, corr: Correspondences, t0, init_guess, last_t0,
                    interval_tn, interval_tn_1, ct_lambda: float, max_outer: int = MAX_OUTER,
                    max_inner: int = MAX_INNER, trans_eps: float = TRANSFORM_EPS,
@@ -267,51 +433,34 @@ def lm_translation(ctx: GICPContext, corr: Correspondences, t0, init_guess, last
     (lm.py:245-306): a 6-dof system of which only the translational part of
     se3_exp(d) is retracted. t0/init_guess/last_t0 [B, 3], intervals [B].
     ct_linearize_fn / ct_error_fn replace gicp.ct_linearize / ct_error, with
-    their arguments (the all-reducing wrappers of parallel/spmd.py)."""
-    ct_lin = ct_linearize_fn if ct_linearize_fn is not None else gicp.ct_linearize
-    ct_err = ct_error_fn if ct_error_fn is not None else gicp.ct_error
+    their arguments (the all-reducing wrappers of parallel/spmd.py).
+
+    On the card without hooks each outer iteration is a replay of a captured
+    CUDA graph (`_CTGraph`): the eager loop's kernels in its order, without
+    a host launch each. The eager loop runs on the CPU and under hooks,
+    whose collectives are not captured. The tracer counts each path's outer
+    iterations (`ct_graph_iterations`, `ct_eager_iterations`)."""
     bsz = t0.shape[0]
     dev, dt = t0.device, t0.dtype
     running0 = torch.ones(bsz, dtype=torch.bool, device=dev) if active is None else active
-    t = t0
-    lam = torch.full((bsz,), -1.0, dtype=dt, device=dev)
     conv = torch.zeros(bsz, dtype=torch.bool, device=dev)
-    failed = torch.zeros_like(conv)
-    h_out = torch.eye(6, dtype=dt, device=dev).expand(bsz, 6, 6)
-    err = torch.zeros(bsz, dtype=dt, device=dev)
-    iters = torch.zeros(bsz, dtype=torch.int32, device=dev)
-    zero3 = torch.zeros_like(t0)
-    args = (init_guess, last_t0, interval_tn, interval_tn_1, ct_lambda)
+    state = _CTState(t0, torch.full((bsz,), -1.0, dtype=dt, device=dev), conv,
+                     torch.zeros_like(conv), torch.eye(6, dtype=dt, device=dev).expand(bsz, 6, 6),
+                     torch.zeros(bsz, dtype=dt, device=dev),
+                     torch.zeros(bsz, dtype=torch.int32, device=dev), running0)
+    problem = _CTProblem(ctx, corr, init_guess, last_t0, interval_tn, interval_tn_1, running0)
+    consts = _CTConsts(float(ct_lambda), max_inner, trans_eps, init_lambda_factor)
     nus = [] if profiling.tracing() else None
-    for _ in range(max_outer):
-        running = running0 & ~conv & ~failed
-        if not profiling.host_read(running.any()):
-            break
-        y0, h, b = ct_lin(ctx, corr, t, *args)
-        diag_max = torch.amax(torch.abs(torch.diagonal(h, dim1=-2, dim2=-1)), dim=-1)
-        lam_i = torch.where(lam < 0, init_lambda_factor * diag_max, lam)
-        cur_t = t
-
-        def try_step(d):
-            delta_t = se3.exp(d).trans
-            cand = cur_t + delta_t
-            return (cand,), delta_t, ct_err(ctx, corr, cand, *args)
-
-        (n_t,), n_lam, done, delta, nu = _lm_inner(
-            h, b, y0, lam_i, (t,), zero3, try_step,
-            lambda dt_: _trans_small(dt_, trans_eps), max_inner, running)
-        t = select(running, n_t, t)
-        lam = torch.where(running, n_lam, lam)
-        conv = torch.where(running, done & _trans_small(delta, trans_eps), conv)
-        failed = torch.where(running, ~done, failed)
-        h_out = select(running, h, h_out)
-        err = torch.where(running, y0, err)
-        iters = iters + running.to(torch.int32)
-        if nus is not None:
-            nus.append(nu)
+    if t0.is_cuda and ct_linearize_fn is None and ct_error_fn is None:
+        state, n = _ct_graphed(problem, state, consts, max_outer, nus)
+        profiling.count("ct_graph_iterations", n)
+    else:
+        state, n = _ct_eager(problem, state, consts, max_outer, nus, ct_linearize_fn,
+                             ct_error_fn)
+        profiling.count("ct_eager_iterations", n)
     if nus is not None:
-        _count_trials(iters, nus, max_inner)
-    return CTResult(t, h_out, err, iters, conv, failed)
+        _count_trials(state.iters, nus, max_inner)
+    return CTResult(state.t, state.h_out, state.err, state.iters, state.conv, state.failed)
 
 
 def lm_translation_rebind(ctx: GICPContext, rot, t0, init_guess, last_t0, interval_tn,

@@ -650,6 +650,87 @@ def test_batches_give_each_instance_its_bits_on_card(cuda):
         assert all(torch.equal(a, b[i]) for a, b in zip(one, batch))
 
 
+def _ct_problem(device, bsz, fine):
+    """lm_translation_rebind's arguments as the front-end passes them, on
+    _se3_scene's pair with each instance's target shifted apart: the polar
+    direct1 context, or the uniform direct7 one of the fine stage; the
+    interval a stride-0 view, as scan_step expands it."""
+    from rolo_tpu_torch.registration import gicp
+    from rolo_tpu_torch.voxel.knn import estimate_cov6
+    from rolo_tpu_torch.voxel.voxelmap import build_voxel_map
+
+    cfg = load_config()
+    reg = cfg.registration
+    src, tgt, mask = (t.to(device) for t in _se3_scene())
+    shift = 0.02 * torch.arange(bsz, dtype=torch.float32, device=device)
+    src = src.expand(bsz, -1, -1).contiguous()
+    tgt = tgt + torch.stack([shift, -0.5 * shift, 0.2 * shift], dim=-1)[:, None]
+    mask = mask.expand(bsz, -1).contiguous()
+    cov = [estimate_cov6(x, mask, k=20, method=reg.regularization) for x in (src, tgt)]
+    polar = None if fine else tuple(reg.polar_resolution)
+    res = reg.ct_fine_resolution if fine else reg.voxel_resolution
+    vmap = build_voxel_map(tgt, cov[1], mask, 4096, polar_res=polar, resolution=res)
+    ctx = gicp.make_context(src, mask, cov[0], vmap, polar_res=polar, resolution=res,
+                            neighbor_search=reg.ct_fine_neighbors if fine else "direct1")
+    eye = torch.eye(3, device=device).expand(bsz, 3, 3)
+    z = torch.zeros(bsz, 3, device=device)
+    dt = torch.as_tensor(0.1, device=device).expand(bsz)
+    return (ctx, eye, z, z, z, dt, dt, reg.ct_lambda), dict(
+        rebind_rounds=2, max_outer=16, max_inner=reg.lm_max_inner_iterations,
+        trans_eps=reg.transformation_epsilon, init_lambda_factor=reg.lm_init_lambda_factor)
+
+
+@pytest.mark.parametrize("fine", [False, True])
+@pytest.mark.parametrize("bsz", [1, 16])
+def test_graphed_ct_lm_is_bit_equal_to_eager(cuda, monkeypatch, bsz, fine):
+    """The CT LM's replayed iterations against the eager loop, every field
+    bit-equal: a first call (which may capture), a second on the same key
+    from another start, so with other correspondences (stale buffers would
+    show), and the first call's result after the second (aliasing would)."""
+    from rolo_tpu_torch.registration import lm
+
+    args, kw = _ct_problem(cuda, bsz, fine)
+    starts = (args[2], args[2] + torch.tensor([0.05, -0.03, 0.01], device=cuda))
+    graphed = [lm.lm_translation_rebind(*args[:2], t0, *args[3:], **kw) for t0 in starts]
+    first = [x.clone() for x in graphed[0]]
+    again = lm.lm_translation_rebind(*args, **kw)
+    monkeypatch.setattr(lm, "_ct_graphed", lm._ct_eager)  # the card path, run eagerly
+    eager = [lm.lm_translation_rebind(*args[:2], t0, *args[3:], **kw) for t0 in starts]
+    assert int(eager[0].iterations.min()) > 0
+    assert not torch.equal(eager[0].trans, eager[1].trans)
+    for got, want in zip(graphed + [again], eager + [eager[0]]):
+        for name, g, w in zip(lm.CTResult._fields, got, want):
+            assert torch.equal(g, w), name
+    assert all(torch.equal(a, b) for a, b in zip(graphed[0], first))
+
+
+def test_ct_lm_counts_its_path_on_card(cuda, monkeypatch):
+    """On the card the CT LM replays its iterations without hooks and runs
+    them eagerly under hooks (the point-sharded path's collectives are not
+    captured); traced, both give the untraced bits and the same LM counts."""
+    from rolo_tpu_torch.registration import gicp, lm
+    from rolo_tpu_torch.runtime import profiling
+
+    args, kw = _ct_problem(cuda, 2, False)
+    plain = lm.lm_translation_rebind(*args, **kw)
+    hooks = dict(ct_linearize_fn=lambda *a: gicp.ct_linearize(*a),
+                 ct_error_fn=lambda *a: gicp.ct_error(*a))
+    timers = profiling.StageTimers()
+    timers.tracing = True
+    with timers.stage("graphed"):
+        graphed = lm.lm_translation_rebind(*args, **kw)
+    with timers.stage("hooked"):
+        hooked = lm.lm_translation_rebind(*args, **kw, **hooks)
+    for got in (graphed, hooked):
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    s = timers.summary()
+    assert s["graphed.ct_graph_iterations"]["total"] > 0
+    assert s["hooked.ct_eager_iterations"]["total"] == s["graphed.ct_graph_iterations"]["total"]
+    assert "graphed.ct_eager_iterations" not in s and "hooked.ct_graph_iterations" not in s
+    for name in ("lm_iterations", "lm_trials", "lm_trials_used"):
+        assert s[f"graphed.{name}"]["total"] == s[f"hooked.{name}"]["total"], name
+
+
 def test_spmd_one_rank_cuda_matches_cpu(cuda):
     """register_scan_pair_spmd on a one-rank NCCL group against the same on
     a gloo group over CPU tensors (2e-4 / 2e-3, tests/test_parallel.py's

@@ -21,12 +21,14 @@ from torch.profiler import ProfilerActivity, profile
 from torch_parity import small_config, small_sim_kwargs
 
 from rolo_tpu_torch import bench
-from rolo_tpu_torch.registration import lm
-from rolo_tpu_torch.registration.rotgicp import register_scan_pair
+from rolo_tpu_torch.frontend.odometry import init_state, scan_step
+from rolo_tpu_torch.registration import gicp, lm
+from rolo_tpu_torch.registration.rotgicp import register_features, register_scan_pair
 from rolo_tpu_torch.runtime import profiling
 from rolo_tpu_torch.runtime.dataset import run_frames
 from rolo_tpu_torch.runtime.slam import SlamSystem
 from rolo_tpu_torch.sim.dataset import SimConfig, generate_sequence
+from rolo_tpu_torch.voxel.knn import estimate_cov6
 
 N_SCANS = 12
 PROFILED = range(8, N_SCANS)  # two prior cycles and four front-end steps
@@ -226,3 +228,47 @@ def test_summary_keeps_the_timed_keys_and_run_frames_builds_traced(frames):
     assert "frontend.lm_iterations" in summary and "total_s" not in summary[
         "frontend.lm_iterations"]
     assert len(slam.timers.report().splitlines()) == 1 + len(timed)
+
+
+def test_ct_iterations_run_eagerly_on_the_cpu(monkeypatch):
+    """A traced `scan_step` on the CPU runs every CT outer iteration eagerly:
+    `frontend.ct_eager_iterations` counts each `_ct_iteration` call and no
+    iteration is a graph's replay; so does the CT LM under objective hooks,
+    as the point-sharded path passes them."""
+    cfg = _config()
+    reg, st = cfg.registration, cfg.static
+    clouds, _ = bench.make_features(SimConfig(**small_sim_kwargs(3)), cfg, "cpu")
+    real, calls = lm._ct_iteration, []
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs["ct_lin"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(lm, "_ct_iteration", counted)
+    timers = profiling.StageTimers()
+    timers.tracing = True
+    state = init_state(st.max_feature_points, "cpu")
+    for c in clouds:
+        with timers.stage("frontend"):
+            state, _ = scan_step(state, c.xyz, c.mask, 0.1, reg, st.max_voxels,
+                                 reg.k_correspondences)
+    stepped = len(calls)
+    src, sm, tgt, tm = (t[None] for t in (clouds[0].xyz, clouds[0].mask, clouds[2].xyz,
+                                          clouds[2].mask))
+    cov = [estimate_cov6(x, m, k=reg.k_correspondences, method=reg.regularization)
+           for x, m in ((src, sm), (tgt, tm))]
+    z, dt = torch.zeros(1, 3), torch.full((1,), 0.1)
+
+    def lin(*args):
+        return gicp.ct_linearize(*args)
+
+    hooks = (gicp.so3_linearize, gicp.compute_error, lin, gicp.ct_error)
+    with timers.stage("hooked"):
+        register_features(src, sm, cov[0], tgt, tm, cov[1], z, z, dt, dt, reg, st.max_voxels,
+                          objective=hooks)
+    s = timers.summary()
+    assert stepped > 0 and set(calls[:stepped]) == {gicp.ct_linearize}
+    assert s["frontend.ct_eager_iterations"]["total"] == stepped
+    assert len(calls) > stepped and set(calls[stepped:]) == {lin}
+    assert s["hooked.ct_eager_iterations"]["total"] == len(calls) - stepped
+    assert not [k for k in s if k.endswith(".ct_graph_iterations")]
