@@ -14,6 +14,10 @@ torch port of `rolo_tpu/loop/closure.py` (backMapping's loop-closure thread).
   end-of-iteration check waits for anyway, and measured cheaper per
   iteration than a closed form through `ops/eig3.py` (~120 small launches).
 - `verify_loop`: ICP from the scan-context yaw and the between factor.
+
+In an active tracer (`runtime/profiling.py`) the ICP of a loop candidate is
+the span `loop.icp`, and every ICP counts its iterations under
+`<stage>.icp_iterations`.
 """
 
 from __future__ import annotations
@@ -114,7 +118,8 @@ def icp_point2point(src: PaddedCloud, tgt: PaddedCloud, init_rot: torch.Tensor,
         return idx, nn, torch.sum((moved - nn) ** 2, dim=-1)
 
     rot, trans = init_rot, init_trans
-    for _ in range(max_iterations):
+    iterations = 0
+    for iterations in range(1, max_iterations + 1):
         _, nn, d2 = nearest(rot, trans)
         w = w_src * (d2 < gate)
         wsum = torch.clamp(w.sum(), min=1e-6)
@@ -127,6 +132,7 @@ def icp_point2point(src: PaddedCloud, tgt: PaddedCloud, init_rot: torch.Tensor,
         rot, trans = new_rot, new_trans
         if profiling.host_read(torch.max(torch.abs(step - eye4)) < transformation_epsilon):
             break
+    profiling.count("icp_iterations", iterations)
 
     idx, _, d2 = nearest(rot, trans)
     fitness = torch.sum(w_src * d2) / torch.clamp(w_src.sum(), min=1e-6)
@@ -162,10 +168,11 @@ def verify_loop(db: KeyframeDB, cur_key, prev_key, cur_submap: PaddedCloud,
     zero, one = torch.zeros_like(c), torch.ones_like(c)
     init_rot = torch.stack([torch.stack([c, -s, zero]), torch.stack([s, c, zero]),
                             torch.stack([zero, zero, one])])
-    icp = icp_point2point(cur_submap, prev_submap, init_rot, torch.zeros(3, dtype=dtype,
-                                                                         device=dev),
-                          max_corr_dist=max_corr_dist, max_iterations=max_iterations,
-                          approx_knn=approx_knn)
+    with profiling.span("loop.icp", sync=lambda: icp.fitness):
+        icp = icp_point2point(cur_submap, prev_submap, init_rot,
+                              torch.zeros(3, dtype=dtype, device=dev),
+                              max_corr_dist=max_corr_dist, max_iterations=max_iterations,
+                              approx_knn=approx_knn)
     t_cur = SE3(read_row(db.rot, cur_key), read_row(db.trans, cur_key))
     t_prev = SE3(read_row(db.rot, prev_key), read_row(db.trans, prev_key))
     rel = SE3(icp.rot, icp.trans).compose(t_cur).inverse().compose(t_prev)

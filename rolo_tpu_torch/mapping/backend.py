@@ -21,6 +21,12 @@ one host branch. A state moves between the two packages with
 the reference's offline `jax.vmap(backend_step)`. Each instance gets the bits
 it gets alone; the host branch on the keyframe count becomes a per-instance
 selection.
+
+In an active tracer (`runtime/profiling.py`) the loop tick records the spans
+`loop.detect` (the radius search and its host read) and `loop.submaps`, and
+the counters `<stage>.candidates` and `<stage>.accepted` for each candidate
+verified; each solve counts the live loop and prior factors it carries
+(`<stage>.loop_factors`, `<stage>.prior_factors`).
 """
 
 from __future__ import annotations
@@ -253,6 +259,8 @@ def solve_graph_host(state: BackendState, cfg: RoloConfig = None,
     graphs at once, at the bucket of its largest count, each masked by its
     own."""
     del cfg  # kept for the reference's signature
+    profiling.count("loop_factors", state.graph.loops.count)
+    profiling.count("prior_factors", state.graph.priors.count)
     count = (profiling.host_read(state.db.count.max(), int) if count_hint is None
              else int(count_hint))
     if count < 1:
@@ -287,14 +295,18 @@ def _try_close(state: BackendState, cur, prev_idx, init_yaw, robust: bool, src_c
                tgt_cap: int, cfg: RoloConfig) -> loopmod.LoopFactor:
     """Assemble both submaps and ICP-verify one loop candidate."""
     lc, leaf = cfg.loop, cfg.mapping.mapping_surf_leaf_size
-    cur_sub = loopmod.assemble_loop_submap(state.db, cur, 0, src_cap, leaf)
-    prev_sub = loopmod.assemble_loop_submap(state.db, prev_idx, lc.history_search_num, tgt_cap,
-                                            leaf)
+    profiling.count("candidates", 1)
+    with profiling.span("loop.submaps", sync=lambda: (cur_sub.mask, prev_sub.mask)):
+        cur_sub = loopmod.assemble_loop_submap(state.db, cur, 0, src_cap, leaf)
+        prev_sub = loopmod.assemble_loop_submap(state.db, prev_idx, lc.history_search_num,
+                                                tgt_cap, leaf)
     # exact k-NN: the accept / reject fitness must not be approximately scored
-    return loopmod.verify_loop(
+    factor = loopmod.verify_loop(
         state.db, cur, prev_idx, cur_sub, prev_sub, init_yaw,
         max_corr_dist=(150.0 if robust else lc.history_search_radius * 2.0),
         fitness_threshold=lc.history_fitness_score, robust=robust, approx_knn=False)
+    profiling.count("accepted", factor.accepted)
+    return factor
 
 
 def loop_closure_step(state: BackendState, cfg: RoloConfig) -> Tuple[BackendState, torch.Tensor]:
@@ -317,9 +329,12 @@ def loop_closure_step(state: BackendState, cfg: RoloConfig) -> Tuple[BackendStat
             state = _insert_loop(state, factor)
             closed = closed | factor.accepted
     if lc.loop_close_type in ("rs", "all"):
-        prev_idx, found = loopmod.detect_loop_distance(
-            state.db, state.loop_matched, lc.history_search_radius, lc.history_search_time_diff)
-        if profiling.host_read(found):
+        with profiling.span("loop.detect"):
+            prev_idx, found = loopmod.detect_loop_distance(
+                state.db, state.loop_matched, lc.history_search_radius,
+                lc.history_search_time_diff)
+            found = profiling.host_read(found)
+        if found:
             factor = _try_close(state, cur, prev_idx, 0.0, False, src_cap, tgt_cap, cfg)
             state = _insert_loop(state, factor)
             closed = closed | factor.accepted

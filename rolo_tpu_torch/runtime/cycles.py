@@ -1,8 +1,9 @@
 """The two back-end cycles `rolo_tpu/runtime/slam.py` builds as programs of
 its own, as plain functions: the live ground-map update at the mapping
 cadence (`_ground_update_jit`, slam.py:93-104) and the 5 Hz prior cycle
-(`_prior_cycle_jit`, slam.py:228-252). The runtime's scheduler is not
-ported yet; its callers run these inline in tick order.
+(`_prior_cycle_jit`, slam.py:228-252). `SlamSystem.process_scan` runs
+both inline: the ground update at each mapping step, the prior cycle at its
+5 Hz cadence beside the scheduler's queue of loop ticks and solves.
 """
 
 from __future__ import annotations

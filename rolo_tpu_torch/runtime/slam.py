@@ -283,7 +283,8 @@ class SlamSystem:
             interval_t = torch.full((), interval, dtype=torch.float32, device=self.device)
             s = cfg.sensor
             if s.deskew_enabled:
-                step_rpy, step_vel = self._deskew_increment(interval)
+                with profiling.span("features.deskew", sync=lambda: step_vel):
+                    step_rpy, step_vel = self._deskew_increment(interval)
                 ring_img = project_scan(scan, s.n_scan, s.horizon_scan, s.lidar_min_range,
                                         s.lidar_max_range, s.downsample_rate, deskew_rpy=step_rpy,
                                         odom_time_diff=interval_t, deskew_vel=step_vel)
@@ -357,8 +358,10 @@ class SlamSystem:
         if cfg.loop.enable and stamp - self._last_loop_time >= 1.0 / cfg.loop.frequency_hz:
             self._last_loop_time = stamp
             self._enqueue("loop")
-        # the prior cycle is cheap and runs inline at its 5 Hz cadence: a
-        # scheduler slot would starve the expensive tasks onto mapping scans
+        # the prior cycle runs inline at its 5 Hz cadence, outside the queue:
+        # it is not cheap (~260-460 ms a cycle on an H100, the contact solve
+        # most of it), but a scheduler slot would starve the loop ticks and
+        # solves onto mapping scans
         if (cfg.prior.enable and (self.ground_map is not None or self._mapping_steps >= 1)
                 and stamp - self._last_prior_time >= 1.0 / cfg.prior.frequency_hz):
             self._last_prior_time = stamp

@@ -4,7 +4,9 @@ no profiler range; on, it adds the front-end's and the prior cycle's spans
 and the counters (LM iterations and trials, the scan-to-map cap, host reads,
 scheduler waits), on the profiler's clock, and leaves every pose's bits as
 they were. A 12-scan run of the 16-beam simulator at the fixture's
-capacities, loops on, so that every stage, span and counter fires.
+capacities, loops on and deskew on, so that every stage, span and counter
+fires; a radius-search loop tick that verifies a revisit, and the solve
+after it, for the loop's spans and counters.
 
 No JAX here: the clock test also runs on the card
 (`python -m pytest --noconftest -p no:cacheprovider tests/test_torch_tracing.py`)."""
@@ -20,8 +22,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from torch_parity import small_config, small_sim_kwargs
 
+import test_torch_m2ud_plain as m2ud_plain
 from rolo_tpu_torch import bench
 from rolo_tpu_torch.frontend.odometry import init_state, scan_step
+from rolo_tpu_torch.mapping import backend as bk
+from rolo_tpu_torch.ops.pytree import tree_to_numpy
 from rolo_tpu_torch.registration import gicp, lm
 from rolo_tpu_torch.registration.rotgicp import register_features, register_scan_pair
 from rolo_tpu_torch.runtime import profiling
@@ -107,6 +112,64 @@ def test_poses_are_bit_identical_on_and_off(runs):
     (off, _, _), (on, _, _) = runs[False], runs[True]
     assert len(off) == len(on) == N_SCANS
     for a, b in zip(off, on):
+        assert a.keys() == b.keys()
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+def test_deskew_is_a_span_of_every_scan_when_traced(runs):
+    """The ESKF-fed deskew increment (deskew on, as the fixture loads it) is
+    the span `features.deskew` inside `project+features`, once a scan."""
+    _, off, _ = runs[False]
+    _, on, names = runs[True]
+    assert "features.deskew" not in off
+    assert on["features.deskew"]["count"] == on["project+features"]["count"] == N_SCANS
+    assert on["features.deskew"]["total_s"] <= on["project+features"]["total_s"]
+    assert "features.deskew" in names
+
+
+LOOP_SPANS = ("loop.detect", "loop.submaps", "loop.icp")
+
+
+def _loop_tick_and_solve(traced: bool):
+    """A radius-search loop tick on a store whose latest keyframe revisits
+    its first lap (`test_torch_m2ud_plain`), then the solve, each in its
+    stage: the summary and both states."""
+    cfg = m2ud_plain._config()
+    state = m2ud_plain._store(0, cfg)
+    timers = profiling.StageTimers()
+    timers.tracing = traced
+    with timers.stage("loop_closure"):
+        closed_state, closed = bk.loop_closure_step(state, cfg)
+    assert bool(closed)
+    with timers.stage("graph_solve"):
+        solved = bk.solve_graph_host(closed_state, cfg)
+    return timers.summary(), closed_state, solved
+
+
+@pytest.fixture(scope="module")
+def loop_runs():
+    return {traced: _loop_tick_and_solve(traced) for traced in (False, True)}
+
+
+def test_loop_tick_and_solve_record_the_loop_spans_and_counters(loop_runs):
+    off, _, _ = loop_runs[False]
+    assert set(off) == {"loop_closure", "graph_solve"}
+    on, _, _ = loop_runs[True]
+    for name in LOOP_SPANS:
+        assert on[name]["count"] == 1, name
+    assert sum(on[n]["total_s"] for n in LOOP_SPANS) <= on["loop_closure"]["total_s"]
+    assert on["loop_closure.candidates"]["total"] == on["loop_closure.accepted"]["total"] == 1
+    assert on["loop_closure.icp_iterations"]["count"] == 1
+    assert 1 <= on["loop_closure.icp_iterations"]["total"] <= 100
+    assert on["graph_solve.loop_factors"] == {"count": 1, "mean": 1.0, "total": 1.0, "max": 1.0}
+    assert on["graph_solve.prior_factors"]["total"] == 0
+
+
+def test_loop_tick_and_solve_are_bit_identical_on_and_off(loop_runs):
+    (_, closed_off, solved_off), (_, closed_on, solved_on) = loop_runs[False], loop_runs[True]
+    for off, on in ((closed_off, closed_on), (solved_off, solved_on)):
+        a, b = tree_to_numpy(off), tree_to_numpy(on)
         assert a.keys() == b.keys()
         for key in a:
             np.testing.assert_array_equal(a[key], b[key], err_msg=key)
