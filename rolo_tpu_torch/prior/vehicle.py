@@ -5,14 +5,18 @@ residual (the reference's VehicleModel / PoseSolver).
 
 The reference maps each wheel with `vmap`; here the wheels are one
 dimension W, after an optional batch of B queries. Its `lax.while_loop` is a
-Python loop with one host check per iteration. A singular LM system gives
-non-finite steps in the reference (`jnp.linalg.solve`) and in the adjugate
+Python loop with one host check per iteration, over one iteration
+(`_contact_iteration`) of fixed shapes, masked by the instances still
+running. On the card each iteration is a replay of a CUDA graph captured at
+the first call of a key (`_ContactGraph`), so the host launches none of its
+~830 kernels; on the CPU it runs eagerly. A singular LM system gives
+non-finite steps in the reference (`jnp.linalg.solve`) and in the pivoted
 solve here, which neither raises nor syncs.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -97,15 +101,13 @@ def _roll_pitch_from_fixed_yaw(r: torch.Tensor, yaw_fixed: torch.Tensor):
             torch.atan2(-r_tilt[..., 2, 0], r_tilt[..., 0, 0]))
 
 
-def _residual_and_jacobian(gm: GroundMap, wheels_b: torch.Tensor, x, y, yaw, z, r, k_spring, g
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _residual_and_jacobian(gm: GroundMap, wheels_b: torch.Tensor, x, y, z, r, k_spring, g, sx,
+                           sy) -> Tuple[torch.Tensor, torch.Tensor]:
     """residual [..., 3] = wrench_map @ contact_forces + g (n_w . ez, 0, 0)
     and its Jacobian [..., 3, 3] in (z, roll, pitch) (vehicle.py:85-124),
-    all wheels of all instances at once."""
-    del yaw
-    dtype, dev = r.dtype, r.device
-    sx = so3.skew(torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=dev))
-    sy = so3.skew(torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=dev))
+    all wheels of all instances at once; sx / sy the skews of the unit x / y
+    axes."""
+    dtype = r.dtype
     t = torch.stack([x, y, z], dim=-1)
     n_w = r[..., :, 2]  # vehicle normal in world: r @ ez
     # wrench map rows: (1, r_y, -r_x) per wheel
@@ -191,6 +193,169 @@ def _solve3(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     return torch.where(solvable[..., None], x, 0.0), solvable
 
 
+class _ContactProblem(NamedTuple):
+    """The operands of one contact solve, fixed over its LM loop."""
+
+    xyz: torch.Tensor  # [G, 3] ground map
+    mask: torch.Tensor  # [G]
+    wheels: torch.Tensor  # [W, 3]
+    x: torch.Tensor  # [...] the queries' batch shape
+    y: torch.Tensor
+    yaw: torch.Tensor
+
+
+class _ContactState(NamedTuple):
+    """The contact LM's state between iterations."""
+
+    z: torch.Tensor  # [...]
+    r: torch.Tensor  # [..., 3, 3]
+    lam: torch.Tensor
+    last_cost: torch.Tensor
+    best_cost: torch.Tensor
+    best_z: torch.Tensor
+    best_r: torch.Tensor
+    conv: torch.Tensor  # [...] bool
+
+
+class _ContactConsts(NamedTuple):
+    k_spring: torch.Tensor  # []
+    g: torch.Tensor  # []
+    eye: torch.Tensor  # [3, 3]
+    sx: torch.Tensor  # [3, 3] skew of the unit x axis
+    sy: torch.Tensor  # [3, 3] skew of the unit y axis
+    tol_cost: float
+    tol_step: float
+
+
+def _consts(cfg: PriorConfig, dtype, dev) -> _ContactConsts:
+    """The loop's constants, built on the device without a host copy."""
+    eye = torch.eye(3, dtype=dtype, device=dev)
+    return _ContactConsts(torch.full((), cfg.k_spring, dtype=dtype, device=dev),
+                          torch.full((), cfg.gravity, dtype=dtype, device=dev), eye,
+                          so3.skew(eye[0]), so3.skew(eye[1]), cfg.tol_cost, cfg.tol_step)
+
+
+def _contact_iteration(p: _ContactProblem, s: _ContactState, c: _ContactConsts
+                       ) -> _ContactState:
+    """One LM iteration (vehicle.py:170-252) of the instances still running:
+    linearize, solve, the trial step's cost, accept or reject."""
+    gm = GroundMap(p.xyz, p.mask)
+    run = ~s.conv
+    res, jac = _residual_and_jacobian(gm, p.wheels, p.x, p.y, s.z, s.r, c.k_spring, c.g, c.sx,
+                                      c.sy)
+    c0 = _dot(res, res)
+    better = run & (c0 < s.best_cost)
+    best_cost = torch.where(better, c0, s.best_cost)
+    best_z = torch.where(better, s.z, s.best_z)
+    best_r = torch.where(better[..., None, None], s.r, s.best_r)
+
+    jt = jac.transpose(-1, -2)
+    delta, solvable = _solve3(small_matmul(jt, jac) + s.lam[..., None, None] * c.eye,
+                              -_mv(jt, res))
+    z_new = s.z + delta[..., 0]
+    r_new = _enforce_fixed_yaw(small_matmul(so3.exp(c.eye[0] * delta[..., 1:2]),
+                                            small_matmul(so3.exp(c.eye[1] * delta[..., 2:3]), s.r)),
+                               p.yaw)
+    res_new, _ = _residual_and_jacobian(gm, p.wheels, p.x, p.y, z_new, r_new, c.k_spring, c.g,
+                                        c.sx, c.sy)
+    c1 = _dot(res_new, res_new)
+
+    accept = solvable & (c1 < c0)
+    conv_now = ((accept & (torch.abs(s.last_cost - c1) < c.tol_cost))
+                | (solvable & (torch.sqrt(_dot(delta, delta)) < c.tol_step)))
+    step = run & accept
+    lam = torch.where(run, torch.where(~solvable, s.lam * 10.0, torch.where(
+        accept, torch.clamp(s.lam / 2.0, min=1e-8), s.lam * 5.0)), s.lam)
+    return _ContactState(z=torch.where(step, z_new, s.z),
+                         r=torch.where(step[..., None, None], r_new, s.r), lam=lam,
+                         last_cost=torch.where(run, torch.where(accept, c1, c0), s.last_cost),
+                         best_cost=best_cost, best_z=best_z, best_r=best_r,
+                         conv=s.conv | (run & conv_now))
+
+
+def _contact_loop(step: Callable, state: _ContactState, max_iters: int):
+    """Up to max_iters steps, each after a host check that an instance still
+    runs. Returns (the last state, the steps taken)."""
+    n = 0
+    while n < max_iters and profiling.host_read((~state.conv).any()):
+        state = step(state)
+        n += 1
+    return state, n
+
+
+class _ContactGraph:
+    """`_contact_iteration` captured once as a CUDA graph over static
+    buffers, as `registration.lm._CTGraph` captures the CT iteration. The
+    problem's buffers are laid out as the operands of the capturing call,
+    strides included, so a replay runs the eager loop's kernels on the same
+    layouts and gives its bits. Each replay advances the state buffers by
+    one iteration in place."""
+
+    WARMUP = 3
+
+    def __init__(self, p: _ContactProblem, s: _ContactState, c: _ContactConsts):
+        self.inputs = _ContactProblem(*(
+            torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device) for x in p))
+        self.state = _ContactState(*(torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                                     for x in s))
+        self.consts = c  # read by every replay
+        self.load(p, s)
+        dev = s.z.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                _contact_iteration(self.inputs, self.state, c)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            nxt = _contact_iteration(self.inputs, self.state, c)
+            for buf, x in zip(self.state, nxt):
+                buf.copy_(x)
+
+    def load(self, p: _ContactProblem, s: _ContactState) -> None:
+        """Copy a call's operands (the ground map is new at every mapping
+        step) and initial state into the buffers."""
+        for buf, x in zip(self.inputs, p):
+            buf.copy_(x)
+        for buf, x in zip(self.state, s):
+            buf.copy_(x)
+
+    def step(self, state: _ContactState) -> _ContactState:
+        self.graph.replay()
+        return state
+
+
+# captured iterations by (constants, algorithms, operand layouts): each
+# configuration's shapes and each batch shape capture once, into the
+# graph's own memory pool
+_CONTACT_GRAPHS: dict = {}
+
+
+def _contact_graphed(p: _ContactProblem, s: _ContactState, c: _ContactConsts,
+                     cfg: PriorConfig):
+    """`_contact_loop` by replays of the key's `_ContactGraph`, captured at
+    its first use. Returns clones of the state: the buffers are the next
+    call's."""
+    key = (cfg.k_spring, cfg.gravity, cfg.tol_cost, cfg.tol_step,
+           torch.are_deterministic_algorithms_enabled(),
+           tuple((x.shape, x.stride(), x.dtype, x.device) for x in p),
+           tuple((x.shape, x.dtype) for x in s))
+    g = _CONTACT_GRAPHS.get(key)
+    if g is None:
+        g = _CONTACT_GRAPHS[key] = _ContactGraph(p, s, c)
+    else:
+        g.load(p, s)
+    state, n = _contact_loop(g.step, g.state, cfg.max_iters)
+    return _ContactState(*(x.clone() for x in state)), n
+
+
+def _contact_eager(p: _ContactProblem, s: _ContactState, c: _ContactConsts,
+                   cfg: PriorConfig):
+    """`_contact_loop` over `_contact_iteration` run eagerly."""
+    return _contact_loop(lambda state: _contact_iteration(p, state, c), s, cfg.max_iters)
+
+
 def solve_pose(gm: GroundMap, vehicle: VehicleModel, x, y, yaw,
                cfg: PriorConfig = PriorConfig()) -> SolverResult:
     """PoseSolver::Solve (vehicle.py:155-262): LM with accept/reject steps,
@@ -201,55 +366,40 @@ def solve_pose(gm: GroundMap, vehicle: VehicleModel, x, y, yaw,
     x, y, yaw are scalars, or [B] for B queries against the one map (the
     reference's vmap, parallel/batch.py): every instance iterates until it
     converges, under a mask, with one host check per iteration for the
-    whole batch. An instance gets the same bits in a batch as alone."""
+    whole batch. An instance gets the same bits in a batch as alone.
+
+    On the card each iteration is a replay of a captured CUDA graph
+    (`_ContactGraph`): the eager loop's kernels in its order, so its bits,
+    without a host launch each; on the CPU the iterations run eagerly. The
+    tracer counts each solve's iterations (`contact_iterations`) and how
+    they ran (`contact_graph_iterations`, `contact_eager_iterations`)."""
     wheels = vehicle.wheel_points_body
     dtype, dev = wheels.dtype, wheels.device
 
     def tensor(v):
         return torch.as_tensor(v, dtype=dtype, device=dev)
 
-    x, y, yaw = torch.broadcast_tensors(tensor(x), tensor(y), tensor(yaw))
-    k_spring, g = tensor(cfg.k_spring), tensor(cfg.gravity)
-    eye = torch.eye(3, dtype=dtype, device=dev)
-    ex, ey = eye[0], eye[1]
+    # contiguous: a captured graph's buffers take each operand's layout
+    x, y, yaw = (t.contiguous() for t in torch.broadcast_tensors(tensor(x), tensor(y),
+                                                                 tensor(yaw)))
+    consts = _consts(cfg, dtype, dev)
 
     r0 = _rot_z(yaw)
     z0 = _initial_z(gm, wheels, x, y, yaw, vehicle.com_z, cfg.ground_avg_radius,
                     cfg.ground_min_neighbors)
-    z, r = z0, r0
-    lam = torch.full_like(x, cfg.lm_lambda)
-    last_cost = best_cost = torch.full_like(x, float("inf"))
-    best_z, best_r = z0, r0
-    conv = torch.zeros(x.shape, dtype=torch.bool, device=dev)
-    for _ in range(cfg.max_iters):
-        run = ~conv
-        if not profiling.host_read(run.any()):
-            break
-        res, jac = _residual_and_jacobian(gm, wheels, x, y, yaw, z, r, k_spring, g)
-        c0 = _dot(res, res)
-        better = run & (c0 < best_cost)
-        best_cost = torch.where(better, c0, best_cost)
-        best_z = torch.where(better, z, best_z)
-        best_r = torch.where(better[..., None, None], r, best_r)
-
-        jt = jac.transpose(-1, -2)
-        delta, solvable = _solve3(small_matmul(jt, jac) + lam[..., None, None] * eye, -_mv(jt, res))
-        z_new = z + delta[..., 0]
-        r_new = _enforce_fixed_yaw(small_matmul(so3.exp(ex * delta[..., 1:2]),
-                                       small_matmul(so3.exp(ey * delta[..., 2:3]), r)), yaw)
-        res_new, _ = _residual_and_jacobian(gm, wheels, x, y, yaw, z_new, r_new, k_spring, g)
-        c1 = _dot(res_new, res_new)
-
-        accept = solvable & (c1 < c0)
-        conv_now = ((accept & (torch.abs(last_cost - c1) < cfg.tol_cost))
-                    | (solvable & (torch.sqrt(_dot(delta, delta)) < cfg.tol_step)))
-        step = run & accept
-        z = torch.where(step, z_new, z)
-        r = torch.where(step[..., None, None], r_new, r)
-        lam = torch.where(run, torch.where(~solvable, lam * 10.0, torch.where(
-            accept, torch.clamp(lam / 2.0, min=1e-8), lam * 5.0)), lam)
-        last_cost = torch.where(run, torch.where(accept, c1, c0), last_cost)
-        conv = conv | (run & conv_now)
+    inf = torch.full_like(x, float("inf"))
+    state = _ContactState(z=z0, r=r0, lam=torch.full_like(x, cfg.lm_lambda), last_cost=inf,
+                          best_cost=inf, best_z=z0, best_r=r0,
+                          conv=torch.zeros(x.shape, dtype=torch.bool, device=dev))
+    problem = _ContactProblem(gm.xyz, gm.mask, wheels, x, y, yaw)
+    if wheels.is_cuda:
+        state, n = _contact_graphed(problem, state, consts, cfg)
+        profiling.count("contact_graph_iterations", n)
+    else:
+        state, n = _contact_eager(problem, state, consts, cfg)
+        profiling.count("contact_eager_iterations", n)
+    profiling.count("contact_iterations", n)
+    best_z, best_r, conv = state.best_z, state.best_r, state.conv
 
     roll, pitch = _roll_pitch_from_fixed_yaw(best_r, yaw)
     # wheel signed distances at the solution
@@ -260,5 +410,5 @@ def solve_pose(gm: GroundMap, vehicle: VehicleModel, x, y, yaw,
     success = (conv & (best_z >= cfg.tolerance_z_min) & (best_z <= cfg.tolerance_z_max)
                & (torch.abs(roll) <= cfg.tolerance_roll) & (torch.abs(pitch) <= cfg.tolerance_pitch)
                & torch.all(torch.abs(dists) <= cfg.tolerance_wheel_distance, dim=-1) & gm.ready)
-    return SolverResult(z=best_z, roll=roll, pitch=pitch, rot=best_r, cost=best_cost,
+    return SolverResult(z=best_z, roll=roll, pitch=pitch, rot=best_r, cost=state.best_cost,
                         wheel_signed_distances=dists, converged=conv, success=success)

@@ -359,9 +359,9 @@ class SlamSystem:
             self._last_loop_time = stamp
             self._enqueue("loop")
         # the prior cycle runs inline at its 5 Hz cadence, outside the queue:
-        # it is not cheap (~260-460 ms a cycle on an H100, the contact solve
-        # most of it), but a scheduler slot would starve the loop ticks and
-        # solves onto mapping scans
+        # it is not cheap (~165 ms a cycle on an H100, the rollout ~95 and
+        # the contact solve ~60 of it), but a scheduler slot would starve the
+        # loop ticks and solves onto mapping scans
         if (cfg.prior.enable and (self.ground_map is not None or self._mapping_steps >= 1)
                 and stamp - self._last_prior_time >= 1.0 / cfg.prior.frequency_hz):
             self._last_prior_time = stamp

@@ -731,6 +731,101 @@ def test_ct_lm_counts_its_path_on_card(cuda, monkeypatch):
         assert s[f"graphed.{name}"]["total"] == s[f"hooked.{name}"]["total"], name
 
 
+def _contact_setup(device, case):
+    """A contact solve's arguments as the prior cycle passes them: the
+    pinned vehicle and gates, the simulator's terrain in a live map's 32,768
+    slots (the rest masked out), the queries. "converging": the small robot
+    (M2UD) on smooth ground; "capped": the truck (vlp32) where rough ground
+    keeps the LM at `max_iters`; "empty": an empty map; "batch": four of
+    the truck's queries at once."""
+    from rolo_tpu_torch.prior.ground import GroundMap
+    from rolo_tpu_torch.sim.dataset import SimConfig, ground_map_points
+
+    paths = ["configs/params.yaml", "configs/prior_pose_params.yaml"]
+    if case == "converging":
+        paths += ["configs/m2ud/params.yaml", "configs/m2ud/prior_pose_params.yaml"]
+    cfg = load_config(paths).prior
+    pts = ground_map_points(SimConfig(period=20.0, roughness=0.0 if case == "converging"
+                                      else 5.0), "cpu")
+    xyz = torch.zeros(64 * 512, 3)
+    xyz[:len(pts)] = pts
+    mask = torch.arange(64 * 512) < (0 if case == "empty" else len(pts))
+    query = {"converging": (5.0, 3.0, 1.0), "capped": (-0.3, -3.51, 2.01),
+             "empty": (1.0, 2.0, 0.3),
+             "batch": ([-0.3, 4.02, 11.0, -9.93], [-3.51, -2.28, -6.5, 7.74],
+                       [2.01, 0.41, 0.7, 1.21])}[case]
+    query = tuple(torch.tensor(q, device=device) for q in query)
+    return GroundMap(xyz.to(device), mask.to(device)), cfg, query
+
+
+def _traced_solve(gm, cfg, query):
+    """solve_pose inside a traced `prior` stage: (result, its counters)."""
+    from rolo_tpu_torch.prior.vehicle import from_config, solve_pose
+    from rolo_tpu_torch.runtime import profiling
+
+    timers = profiling.StageTimers()
+    timers.tracing = True
+    with timers.stage("prior"):
+        res = solve_pose(gm, from_config(cfg, gm.xyz.device), *query, cfg)
+    return res, {k[len("prior."):]: v["total"] for k, v in timers.summary().items()
+                 if k.startswith("prior.contact_")}
+
+
+@pytest.mark.parametrize("case", ["converging", "capped", "empty", "batch"])
+def test_graphed_contact_lm_is_bit_equal_to_eager(cuda, monkeypatch, case):
+    """The contact LM's replayed iterations against the eager loop on the
+    card: every SolverResult field bit-equal, the same iteration count; a
+    batch of four gives each query its bits alone."""
+    from rolo_tpu_torch.prior import vehicle
+
+    monkeypatch.setattr(vehicle, "_CONTACT_GRAPHS", {})
+    gm, cfg, query = _contact_setup(cuda, case)
+    graphed, counts = _traced_solve(gm, cfg, query)
+    assert len(vehicle._CONTACT_GRAPHS) == 1
+    monkeypatch.setattr(vehicle, "_contact_graphed", vehicle._contact_eager)  # run eagerly
+    eager, eager_counts = _traced_solve(gm, cfg, query)
+    n = counts["contact_iterations"]
+    assert counts == eager_counts == {"contact_iterations": n, "contact_graph_iterations": n}
+    for name, g, w in zip(vehicle.SolverResult._fields, graphed, eager):
+        assert torch.equal(g, w), name
+    if case == "converging":
+        assert bool(eager.converged) and bool(eager.success) and 0 < n < cfg.max_iters
+    elif case == "capped":
+        assert not bool(eager.converged) and n == cfg.max_iters
+    elif case == "empty":
+        assert not bool(eager.success) and n > 0
+    else:
+        monkeypatch.undo()
+        for i in range(4):
+            one, _ = _traced_solve(gm, cfg, tuple(q[i] for q in query))
+            assert all(torch.equal(a, b[i]) for a, b in zip(one, graphed)), i
+
+
+def test_contact_graph_serves_a_second_map_without_a_capture(cuda, monkeypatch):
+    """A second solve on another ground map and query of the same key
+    replays the first call's graph, with no second capture, and gives the
+    eager loop's bits; the first call's result is not overwritten."""
+    from rolo_tpu_torch.prior import vehicle
+
+    graphs = {}
+    monkeypatch.setattr(vehicle, "_CONTACT_GRAPHS", graphs)
+    gm, cfg, query = _contact_setup(cuda, "capped")
+    first, _ = _traced_solve(gm, cfg, query)
+    kept = [x.clone() for x in first]
+    graph = next(iter(graphs.values()))
+    gm2 = gm._replace(xyz=gm.xyz + torch.tensor([0.5, -0.25, 0.1], device=cuda))
+    query2 = (query[0] + 3.0, query[1] - 1.0, query[2] - 0.5)
+    second, counts = _traced_solve(gm2, cfg, query2)
+    assert list(graphs.values()) == [graph]
+    assert all(torch.equal(a, b) for a, b in zip(first, kept))
+    monkeypatch.setattr(vehicle, "_contact_graphed", vehicle._contact_eager)
+    eager, eager_counts = _traced_solve(gm2, cfg, query2)
+    assert counts == eager_counts
+    assert not torch.equal(second.z, first.z)
+    for name, g, w in zip(vehicle.SolverResult._fields, second, eager):
+        assert torch.equal(g, w), name
+
+
 def test_spmd_one_rank_cuda_matches_cpu(cuda):
     """register_scan_pair_spmd on a one-rank NCCL group against the same on
     a gloo group over CPU tensors (2e-4 / 2e-3, tests/test_parallel.py's

@@ -251,13 +251,14 @@ def test_residual_jacobian_and_initial_z_match_reference():
     tilt = np.asarray(jve._rot_z(jnp.float32(yaw)) @ jnp.asarray(
         [[1.0, 0, 0], [0, np.cos(0.05), -np.sin(0.05)], [0, np.sin(0.05), np.cos(0.05)]],
         jnp.float32))
+    c = ve._consts(port_config(CFG), torch.float32, "cpu")
     for z in (z0, z0 + 0.8):
         jres, jjac = jve._residual_and_jacobian(jgm, jv.wheel_points_body, jnp.float32(x),
                                                 jnp.float32(y), jnp.float32(yaw), jnp.float32(z),
                                                 jnp.asarray(tilt), 20.0, 1.0)
         res, jac = ve._residual_and_jacobian(gm, v.wheel_points_body, torch.tensor(x),
-                                             torch.tensor(y), torch.tensor(yaw), torch.tensor(z),
-                                             T(tilt), torch.tensor(20.0), torch.tensor(1.0))
+                                             torch.tensor(y), torch.tensor(z), T(tilt),
+                                             torch.tensor(20.0), torch.tensor(1.0), c.sx, c.sy)
         scale = max(1.0, float(np.abs(jjac).max()))
         np.testing.assert_allclose(res.numpy(), np.asarray(jres), atol=1e-5 * scale)
         np.testing.assert_allclose(jac.numpy(), np.asarray(jjac), atol=1e-5 * scale)

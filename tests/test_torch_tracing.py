@@ -27,6 +27,7 @@ from rolo_tpu_torch import bench
 from rolo_tpu_torch.frontend.odometry import init_state, scan_step
 from rolo_tpu_torch.mapping import backend as bk
 from rolo_tpu_torch.ops.pytree import tree_to_numpy
+from rolo_tpu_torch.prior import vehicle
 from rolo_tpu_torch.registration import gicp, lm
 from rolo_tpu_torch.registration.rotgicp import register_features, register_scan_pair
 from rolo_tpu_torch.runtime import profiling
@@ -335,3 +336,25 @@ def test_ct_iterations_run_eagerly_on_the_cpu(monkeypatch):
     assert len(calls) > stepped and set(calls[stepped:]) == {lin}
     assert s["hooked.ct_eager_iterations"]["total"] == len(calls) - stepped
     assert not [k for k in s if k.endswith(".ct_graph_iterations")]
+
+
+def test_contact_iterations_run_eagerly_on_the_cpu(frames, runs, monkeypatch):
+    """A traced run's prior cycles on the CPU run every contact LM iteration
+    eagerly: `prior.contact_iterations` and `prior.contact_eager_iterations`
+    count each `_contact_iteration` call, one sample a solve, no iteration
+    is a graph's replay, and the poses keep the untraced run's bits."""
+    real, calls = vehicle._contact_iteration, []
+
+    def counted(*args):
+        calls.append(args[0].xyz.device)
+        return real(*args)
+
+    monkeypatch.setattr(vehicle, "_contact_iteration", counted)
+    poses, s, _ = _run(frames, traced=True)
+    iters, eager = s["prior.contact_iterations"], s["prior.contact_eager_iterations"]
+    assert iters == eager and iters["total"] == len(calls) > 0
+    assert iters["count"] == s["prior.contact"]["count"] == s["prior"]["count"]
+    assert not [k for k in s if k.endswith("contact_graph_iterations")]
+    for a, b in zip(runs[False][0], poses):
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
