@@ -7,23 +7,24 @@ The reference maps each wheel with `vmap`; here the wheels are one
 dimension W, after an optional batch of B queries. Its `lax.while_loop` is a
 Python loop with one host check per iteration, over one iteration
 (`_contact_iteration`) of fixed shapes, masked by the instances still
-running. On the card each iteration is a replay of a CUDA graph captured at
-the first call of a key (`_ContactGraph`), so the host launches none of its
-~830 kernels; on the CPU it runs eagerly. A singular LM system gives
-non-finite steps in the reference (`jnp.linalg.solve`) and in the pivoted
-solve here, which neither raises nor syncs.
+running, under `runtime/replay.py`'s `host_loop`. On the card each
+iteration is a replay of a CUDA graph captured at the first call of a key
+(`replay.run`), so the host launches none of its ~830 kernels; on the CPU
+it runs eagerly. A singular LM system gives non-finite steps in the
+reference (`jnp.linalg.solve`) and in the pivoted solve here, which neither
+raises nor syncs.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from ..config import PriorConfig
 from ..geometry import so3
 from ..ops.linalg import small_matmul
-from ..runtime import profiling
+from ..runtime import profiling, replay
 from ..runtime.platform import default_device
 from .ground import GroundMap, average_height_at, contact_point, nearest_point_xy
 
@@ -202,6 +203,7 @@ class _ContactProblem(NamedTuple):
     x: torch.Tensor  # [...] the queries' batch shape
     y: torch.Tensor
     yaw: torch.Tensor
+    c: _ContactConsts
 
 
 class _ContactState(NamedTuple):
@@ -218,28 +220,30 @@ class _ContactState(NamedTuple):
 
 
 class _ContactConsts(NamedTuple):
+    """The constants the iteration reads as tensors, built once a call on
+    the device without a host copy."""
+
     k_spring: torch.Tensor  # []
     g: torch.Tensor  # []
     eye: torch.Tensor  # [3, 3]
     sx: torch.Tensor  # [3, 3] skew of the unit x axis
     sy: torch.Tensor  # [3, 3] skew of the unit y axis
-    tol_cost: float
-    tol_step: float
 
 
 def _consts(cfg: PriorConfig, dtype, dev) -> _ContactConsts:
-    """The loop's constants, built on the device without a host copy."""
     eye = torch.eye(3, dtype=dtype, device=dev)
     return _ContactConsts(torch.full((), cfg.k_spring, dtype=dtype, device=dev),
                           torch.full((), cfg.gravity, dtype=dtype, device=dev), eye,
-                          so3.skew(eye[0]), so3.skew(eye[1]), cfg.tol_cost, cfg.tol_step)
+                          so3.skew(eye[0]), so3.skew(eye[1]))
 
 
-def _contact_iteration(p: _ContactProblem, s: _ContactState, c: _ContactConsts
-                       ) -> _ContactState:
+def _contact_iteration(p: _ContactProblem, s: _ContactState, tol: Tuple[float, float]
+                       ) -> Tuple[_ContactState, None]:
     """One LM iteration (vehicle.py:170-252) of the instances still running:
-    linearize, solve, the trial step's cost, accept or reject."""
-    gm = GroundMap(p.xyz, p.mask)
+    linearize, solve, the trial step's cost, accept or reject. tol is
+    (tol_cost, tol_step). Returns the next state and no extra output."""
+    gm, c = GroundMap(p.xyz, p.mask), p.c
+    tol_cost, tol_step = tol
     run = ~s.conv
     res, jac = _residual_and_jacobian(gm, p.wheels, p.x, p.y, s.z, s.r, c.k_spring, c.g, c.sx,
                                       c.sy)
@@ -261,8 +265,8 @@ def _contact_iteration(p: _ContactProblem, s: _ContactState, c: _ContactConsts
     c1 = _dot(res_new, res_new)
 
     accept = solvable & (c1 < c0)
-    conv_now = ((accept & (torch.abs(s.last_cost - c1) < c.tol_cost))
-                | (solvable & (torch.sqrt(_dot(delta, delta)) < c.tol_step)))
+    conv_now = ((accept & (torch.abs(s.last_cost - c1) < tol_cost))
+                | (solvable & (torch.sqrt(_dot(delta, delta)) < tol_step)))
     step = run & accept
     lam = torch.where(run, torch.where(~solvable, s.lam * 10.0, torch.where(
         accept, torch.clamp(s.lam / 2.0, min=1e-8), s.lam * 5.0)), s.lam)
@@ -270,90 +274,11 @@ def _contact_iteration(p: _ContactProblem, s: _ContactState, c: _ContactConsts
                          r=torch.where(step[..., None, None], r_new, s.r), lam=lam,
                          last_cost=torch.where(run, torch.where(accept, c1, c0), s.last_cost),
                          best_cost=best_cost, best_z=best_z, best_r=best_r,
-                         conv=s.conv | (run & conv_now))
+                         conv=s.conv | (run & conv_now)), None
 
 
-def _contact_loop(step: Callable, state: _ContactState, max_iters: int):
-    """Up to max_iters steps, each after a host check that an instance still
-    runs. Returns (the last state, the steps taken)."""
-    n = 0
-    while n < max_iters and profiling.host_read((~state.conv).any()):
-        state = step(state)
-        n += 1
-    return state, n
-
-
-class _ContactGraph:
-    """`_contact_iteration` captured once as a CUDA graph over static
-    buffers, as `registration.lm._CTGraph` captures the CT iteration. The
-    problem's buffers are laid out as the operands of the capturing call,
-    strides included, so a replay runs the eager loop's kernels on the same
-    layouts and gives its bits. Each replay advances the state buffers by
-    one iteration in place."""
-
-    WARMUP = 3
-
-    def __init__(self, p: _ContactProblem, s: _ContactState, c: _ContactConsts):
-        self.inputs = _ContactProblem(*(
-            torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device) for x in p))
-        self.state = _ContactState(*(torch.empty(x.shape, dtype=x.dtype, device=x.device)
-                                     for x in s))
-        self.consts = c  # read by every replay
-        self.load(p, s)
-        dev = s.z.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(self.WARMUP):
-                _contact_iteration(self.inputs, self.state, c)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            nxt = _contact_iteration(self.inputs, self.state, c)
-            for buf, x in zip(self.state, nxt):
-                buf.copy_(x)
-
-    def load(self, p: _ContactProblem, s: _ContactState) -> None:
-        """Copy a call's operands (the ground map is new at every mapping
-        step) and initial state into the buffers."""
-        for buf, x in zip(self.inputs, p):
-            buf.copy_(x)
-        for buf, x in zip(self.state, s):
-            buf.copy_(x)
-
-    def step(self, state: _ContactState) -> _ContactState:
-        self.graph.replay()
-        return state
-
-
-# captured iterations by (constants, algorithms, operand layouts): each
-# configuration's shapes and each batch shape capture once, into the
-# graph's own memory pool
-_CONTACT_GRAPHS: dict = {}
-
-
-def _contact_graphed(p: _ContactProblem, s: _ContactState, c: _ContactConsts,
-                     cfg: PriorConfig):
-    """`_contact_loop` by replays of the key's `_ContactGraph`, captured at
-    its first use. Returns clones of the state: the buffers are the next
-    call's."""
-    key = (cfg.k_spring, cfg.gravity, cfg.tol_cost, cfg.tol_step,
-           torch.are_deterministic_algorithms_enabled(),
-           tuple((x.shape, x.stride(), x.dtype, x.device) for x in p),
-           tuple((x.shape, x.dtype) for x in s))
-    g = _CONTACT_GRAPHS.get(key)
-    if g is None:
-        g = _CONTACT_GRAPHS[key] = _ContactGraph(p, s, c)
-    else:
-        g.load(p, s)
-    state, n = _contact_loop(g.step, g.state, cfg.max_iters)
-    return _ContactState(*(x.clone() for x in state)), n
-
-
-def _contact_eager(p: _ContactProblem, s: _ContactState, c: _ContactConsts,
-                   cfg: PriorConfig):
-    """`_contact_loop` over `_contact_iteration` run eagerly."""
-    return _contact_loop(lambda state: _contact_iteration(p, state, c), s, cfg.max_iters)
+def _running(s: _ContactState) -> torch.Tensor:
+    return ~s.conv
 
 
 def solve_pose(gm: GroundMap, vehicle: VehicleModel, x, y, yaw,
@@ -369,7 +294,7 @@ def solve_pose(gm: GroundMap, vehicle: VehicleModel, x, y, yaw,
     whole batch. An instance gets the same bits in a batch as alone.
 
     On the card each iteration is a replay of a captured CUDA graph
-    (`_ContactGraph`): the eager loop's kernels in its order, so its bits,
+    (`runtime/replay.py`): the eager loop's kernels in its order, so its bits,
     without a host launch each; on the CPU the iterations run eagerly. The
     tracer counts each solve's iterations (`contact_iterations`) and how
     they ran (`contact_graph_iterations`, `contact_eager_iterations`)."""
@@ -379,10 +304,10 @@ def solve_pose(gm: GroundMap, vehicle: VehicleModel, x, y, yaw,
     def tensor(v):
         return torch.as_tensor(v, dtype=dtype, device=dev)
 
-    # contiguous: a captured graph's buffers take each operand's layout
+    # contiguous: one layout whichever queries were scalars, so one captured
+    # graph a batch shape
     x, y, yaw = (t.contiguous() for t in torch.broadcast_tensors(tensor(x), tensor(y),
                                                                  tensor(yaw)))
-    consts = _consts(cfg, dtype, dev)
 
     r0 = _rot_z(yaw)
     z0 = _initial_z(gm, wheels, x, y, yaw, vehicle.com_z, cfg.ground_avg_radius,
@@ -391,13 +316,11 @@ def solve_pose(gm: GroundMap, vehicle: VehicleModel, x, y, yaw,
     state = _ContactState(z=z0, r=r0, lam=torch.full_like(x, cfg.lm_lambda), last_cost=inf,
                           best_cost=inf, best_z=z0, best_r=r0,
                           conv=torch.zeros(x.shape, dtype=torch.bool, device=dev))
-    problem = _ContactProblem(gm.xyz, gm.mask, wheels, x, y, yaw)
-    if wheels.is_cuda:
-        state, n = _contact_graphed(problem, state, consts, cfg)
-        profiling.count("contact_graph_iterations", n)
-    else:
-        state, n = _contact_eager(problem, state, consts, cfg)
-        profiling.count("contact_eager_iterations", n)
+    problem = _ContactProblem(gm.xyz, gm.mask, wheels, x, y, yaw, _consts(cfg, dtype, dev))
+    graphed = wheels.is_cuda
+    state, n = replay.run(_contact_iteration, problem, state, (cfg.tol_cost, cfg.tol_step),
+                          _running, cfg.max_iters, graphed)
+    profiling.count("contact_graph_iterations" if graphed else "contact_eager_iterations", n)
     profiling.count("contact_iterations", n)
     best_z, best_r, conv = state.best_z, state.best_r, state.conv
 

@@ -688,13 +688,14 @@ def test_graphed_ct_lm_is_bit_equal_to_eager(cuda, monkeypatch, bsz, fine):
     from another start, so with other correspondences (stale buffers would
     show), and the first call's result after the second (aliasing would)."""
     from rolo_tpu_torch.registration import lm
+    from rolo_tpu_torch.runtime import replay
 
     args, kw = _ct_problem(cuda, bsz, fine)
     starts = (args[2], args[2] + torch.tensor([0.05, -0.03, 0.01], device=cuda))
     graphed = [lm.lm_translation_rebind(*args[:2], t0, *args[3:], **kw) for t0 in starts]
     first = [x.clone() for x in graphed[0]]
     again = lm.lm_translation_rebind(*args, **kw)
-    monkeypatch.setattr(lm, "_ct_graphed", lm._ct_eager)  # the card path, run eagerly
+    monkeypatch.setattr(replay, "replayed", replay.eager)  # the card path, run eagerly
     eager = [lm.lm_translation_rebind(*args[:2], t0, *args[3:], **kw) for t0 in starts]
     assert int(eager[0].iterations.min()) > 0
     assert not torch.equal(eager[0].trans, eager[1].trans)
@@ -758,6 +759,13 @@ def _contact_setup(device, case):
     return GroundMap(xyz.to(device), mask.to(device)), cfg, query
 
 
+def _contact_graphs(graphs):
+    """The contact LM's captured iterations in a `replay._GRAPHS`."""
+    from rolo_tpu_torch.prior import vehicle
+
+    return [g for k, g in graphs.items() if k[0] is vehicle._contact_iteration]
+
+
 def _traced_solve(gm, cfg, query):
     """solve_pose inside a traced `prior` stage: (result, its counters)."""
     from rolo_tpu_torch.prior.vehicle import from_config, solve_pose
@@ -777,12 +785,13 @@ def test_graphed_contact_lm_is_bit_equal_to_eager(cuda, monkeypatch, case):
     card: every SolverResult field bit-equal, the same iteration count; a
     batch of four gives each query its bits alone."""
     from rolo_tpu_torch.prior import vehicle
+    from rolo_tpu_torch.runtime import replay
 
-    monkeypatch.setattr(vehicle, "_CONTACT_GRAPHS", {})
+    monkeypatch.setattr(replay, "_GRAPHS", {})
     gm, cfg, query = _contact_setup(cuda, case)
     graphed, counts = _traced_solve(gm, cfg, query)
-    assert len(vehicle._CONTACT_GRAPHS) == 1
-    monkeypatch.setattr(vehicle, "_contact_graphed", vehicle._contact_eager)  # run eagerly
+    assert len(_contact_graphs(replay._GRAPHS)) == 1
+    monkeypatch.setattr(replay, "replayed", replay.eager)  # run eagerly
     eager, eager_counts = _traced_solve(gm, cfg, query)
     n = counts["contact_iterations"]
     assert counts == eager_counts == {"contact_iterations": n, "contact_graph_iterations": n}
@@ -806,19 +815,20 @@ def test_contact_graph_serves_a_second_map_without_a_capture(cuda, monkeypatch):
     replays the first call's graph, with no second capture, and gives the
     eager loop's bits; the first call's result is not overwritten."""
     from rolo_tpu_torch.prior import vehicle
+    from rolo_tpu_torch.runtime import replay
 
     graphs = {}
-    monkeypatch.setattr(vehicle, "_CONTACT_GRAPHS", graphs)
+    monkeypatch.setattr(replay, "_GRAPHS", graphs)
     gm, cfg, query = _contact_setup(cuda, "capped")
     first, _ = _traced_solve(gm, cfg, query)
     kept = [x.clone() for x in first]
-    graph = next(iter(graphs.values()))
+    (graph,) = _contact_graphs(graphs)
     gm2 = gm._replace(xyz=gm.xyz + torch.tensor([0.5, -0.25, 0.1], device=cuda))
     query2 = (query[0] + 3.0, query[1] - 1.0, query[2] - 0.5)
     second, counts = _traced_solve(gm2, cfg, query2)
-    assert list(graphs.values()) == [graph]
+    assert _contact_graphs(graphs) == [graph]
     assert all(torch.equal(a, b) for a, b in zip(first, kept))
-    monkeypatch.setattr(vehicle, "_contact_graphed", vehicle._contact_eager)
+    monkeypatch.setattr(replay, "replayed", replay.eager)
     eager, eager_counts = _traced_solve(gm2, cfg, query2)
     assert counts == eager_counts
     assert not torch.equal(second.z, first.z)
