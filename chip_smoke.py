@@ -6,7 +6,7 @@
 Phases, in order; any failure raises, so the exit code is non-zero:
   0. device: a CUDA device is required (nothing falls back to the CPU);
      full-f32 precision; the card's nvidia-smi name and power limit.
-  1. build both CUDA kernels from rolo_tpu_torch/csrc with nvcc (sm_90a).
+  1. build the three CUDA kernels from rolo_tpu_torch/csrc with nvcc (sm_90a).
   2. each kernel against its plain torch version on the card, at the main
      path's shapes (B=16, 8192 feature points, RoloConfig() capacities):
      errors with their tolerance (K2's count plane bit for bit), the same
@@ -17,7 +17,17 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      function where there is one (`library_ms`, timed like the kernel), for
      K1's joins the two library calls that compute the same (searchsorted
      + gather, `two_calls_ms`, timed alike and held to the plain version),
-     and the sort inside the build's and K2's times (`parts_ms`).
+     and the sort inside the build's and K2's times (`parts_ms`). K3
+     (`check_knn_select`) at the mapping binds' shapes, B=16 (the batch) and
+     B=1 (a stream), 4,096 corner and 12,288 surface queries against 32,768
+     submap slots, k=5, the loop ICP's 1-NN (4,096 against 16,384) and the
+     batch's corner candidates at k=64:
+     every selected distance bit-equal to the plain tile's top k, the index
+     sets equal where the k-th and (k+1)-th differ, nearest first with ties
+     to the lower index, the same bits from a second call; the kernel's
+     device time (replayed CUDA graph), `knn_indices`' event time with the
+     wrapper's torch ops, the plain chunk loop's, and the bound (6 f32
+     instructions a (query, slot) pair at the card's f32 lane rate).
   3. the main path, the bench workload: simulated 32-beam scans ->
      featurize -> register_scan_pair on 16 stride-2 pairs from a zero guess.
      The bench gate (median < 0.75 deg and < 0.030 m) must hold, and both
@@ -44,7 +54,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      Raises unless every pose is finite, at least 10 keyframes were added,
      at least one loop and one prior factor were accepted and a solve ran
      with both in the graph, the mapped keyframes' ATE after finalize is no
-     worse than the front-end's, both kernels' launch counters rose, and no
+     worse than the front-end's, the three kernels' launch counters rose, and no
      scan dispatched more than one queued task. Prints the wall time per
      process_scan (synced at the fused-pose fetch; mapping and other scans
      apart), scans/s, the stage timers and the tasks per scan, and
@@ -80,7 +90,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
  10. the measuring tools (`latency_and_pipeline`): tools/torch_bench_latency.py's
      saturated and 10 Hz feeds over 28 scans of its sim (8 measured, no
      warm pass), gated on 8 finite latencies a mode, no paced scan
-     started before its arrival, ATE < 1.0 m and both kernels launched;
+     started before its arrival, ATE < 1.0 m and the three kernels launched;
      then tools/torch_bench_pipeline.py at --warmup 5 --scans 10. Both
      reports print as JSON lines.
  11. the stage profilers and diagnostics (`profiles_and_diagnostics`):
@@ -90,7 +100,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      tools/torch_diag_{dense_solve,graphsolve}.py at buckets 256 and 2,048
      (graphsolve's pcg at 256 only),
      torch_diag_ct.py on 4 bench pairs and torch_diag_prior.py over 12
-     scans; every row finite, both kernels launched by the profilers, bcr
+     scans; every row finite, the three kernels launched by the profilers, bcr
      and pcg within 1 mm of a finite dense solution and within a fifth of
      their start's error, the prior funnels narrowing to the run's prior
      factors. Each report prints as a JSON line.
@@ -101,7 +111,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      one-process batch's rows; (b) register_scan_pair_spmd over both ranks
      on phase 8 (b)'s pair within 2e-4 / 2e-3 of register_scan_pair and
      inside the bench gate, the same bits in both ranks; (c)
-     dryrun_multichip(2); (d) both kernels launched in every rank; (e)
+     dryrun_multichip(2); (d) the three kernels launched in every rank; (e)
      tools/torch_bench_weak_2proc.py at its defaults and
      tools/torch_bench_scaling.py at --ranks 2 --repeats 1, each row a JSON
      line, every number finite and > 0. A rank's non-zero exit or a group
@@ -115,7 +125,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      fine joins and K2 at B = 1, K2 at B = 4); (b) the command line in this
      process, `run --input <dir> --config params_os.yaml --config
      prior_pose_params.yaml --gt <tum>`: rc 0, every scan, finite poses,
-     front-end ATE < 0.5 m, both kernels launched, the exports written;
+     front-end ATE < 0.5 m, the three kernels launched, the exports written;
      scans/s, ms per scan, peak allocated memory, the mapped ATE; (c) the
      capacity funnel per scan (raw returns kept, rings cut, extracted
      points, corners, surfaces, features, valid voxels against their
@@ -133,7 +143,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      /velodyne_points --config params.yaml --config prior_pose_params.yaml
      --gt <tum>`: rc 0, every scan, finite poses, front-end ATE < 0.5 m,
      mapped keyframes no worse, the loaded loop type "rs", at least one loop
-     factor between keyframes more than 30 s apart, both kernels launched,
+     factor between keyframes more than 30 s apart, the three kernels launched,
      the exports written; the loop tick that verified and the first solve
      that carried its factor, synced and timed, with the ATEs before and
      after that solve; the prior ticks' funnel (contact solves, record
@@ -141,7 +151,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      holds no ground near the pose the prior cycle predicts, in the JAX
      package too (ROADMAP Queue 3); (c) the README's
      KITTI .bin recipe on the sequence's first 40 scans (no ring, no time:
-     both inferred): rc 0, 40 scans, finite poses, both kernels launched,
+     both inferred): rc 0, 40 scans, finite poses, the three kernels launched,
      and the ring funnel (distinct inferred rings, points per ring, pixels
      lost where two beams share a ring and a column), printed.
 Then one JSON line lists each kernel: its launches in phase 3's main-path
@@ -199,6 +209,7 @@ from rolo_tpu_torch.mapping.backend import (backend_step, init_backend, loop_clo
                                             solve_graph_host)
 from rolo_tpu_torch.ops import cuda_build
 from rolo_tpu_torch.ops.knn_moments import knn_moments, knn_moments_torch, morton_order
+from rolo_tpu_torch.ops.knn_select import knn_select
 from rolo_tpu_torch.ops.pytree import tree_index, tree_leaves
 from rolo_tpu_torch.ops.voxel_join import (INVALID_PACK, keyed_matmul, keyed_matmul_torch,
                                            pack_polar, pack_uniform)
@@ -224,7 +235,8 @@ from rolo_tpu_torch.runtime.slam import SlamSystem, infer_rings
 from rolo_tpu_torch.sim.dataset import (SimConfig, SimFrame, generate_sequence,
                                         ground_map_points, make_scene, simulate_frame)
 from rolo_tpu_torch.sim.lidar import LidarModel
-from rolo_tpu_torch.voxel.knn import estimate_cov6, knn_indices, moment_table
+from rolo_tpu_torch.voxel.knn import (distance_tile, estimate_cov6, kernel_operands, knn_indices,
+                                      knn_indices_plain, moment_table)
 from rolo_tpu_torch.voxel.voxelmap import build_voxel_map, polar_coord, uniform_coord
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -442,6 +454,95 @@ def check_kernels(cases, reps: int = 5) -> dict:
     return summary
 
 
+# K3's cases (B, Q, N, k): the mapping binds' 5-NN of a batch of 16 and of a
+# stream, corners then surfaces against a 32,768-slot submap (RoloConfig()'s
+# 4,096 / 12,288 / 32,768), the loop ICP's 1-NN (icp_src / icp_tgt capacity),
+# and the batch's corner candidates at scan2map_candidates = 64 (the largest
+# k the port asks for, tools/torch_ab_defaults.py)
+KNN_SELECT_CASES = ((16, 4096, 32768, 5), (16, 12288, 32768, 5), (1, 4096, 32768, 5),
+                    (1, 12288, 32768, 5), (1, 4096, 16384, 1), (16, 4096, 32768, 64))
+KNN_SELECT_INSTRUCTIONS = 6  # f32 instructions a (query, slot) pair: dot, FMA, add, compare
+H100_F32_LANE_RATE = H100_F32_FLOPS / 2  # instructions a second: an FMA is two FLOP
+
+
+def knn_select_inputs(b: int, q: int, n: int, seed: int, device):
+    """(query, query mask, points, point mask) on `device`: each instance's
+    points a submap of tools/torch_bench_batch_mapping.py's walls and
+    pillars with a tenth of the slots invalid (NaN coordinates), its queries
+    another draw of the same walls 5 cm off; every query valid."""
+    world = _tool("torch_bench_batch_mapping").world
+    pts, query = [], []
+    for i in range(b):
+        corner, surf = world(seed + i, n + 8, n // 4 + 12)  # the walls and pillars round down
+        pts.append(np.concatenate([surf[:n - n // 4], corner[:n // 4]]))
+        query.append(world(seed + 1000 + i, q + 8, 12)[1][:q] + np.float32(0.05))
+    rng = np.random.default_rng(seed)
+    pmask = torch.as_tensor(rng.random((b, n)) >= 0.1)
+    pts = torch.where(pmask[..., None], torch.as_tensor(np.stack(pts)), float("nan"))
+    qmask = torch.ones(b, q, dtype=torch.bool)
+    return tuple(t.to(device) for t in (torch.as_tensor(np.stack(query)), qmask, pts, pmask))
+
+
+def knn_select_disagreement(got, query, qmask, pts, pmask, k: int, chunk: int = 512) -> dict:
+    """Valid query rows where K3's indices `got` [B, Q, k] break its
+    contract against the plain tile (`distance_tile`, chunk by chunk):
+    `distances` (the selected d, in order, not bit-equal to the tile's k
+    smallest), `indices` (the index set differs where the k-th and (k+1)-th
+    smallest d differ), `order` (not nearest first with ties to the lower
+    index), `range` (an index outside [0, N)); with the rows compared."""
+    n = pts.shape[-2]
+    bad = {"distances": 0, "indices": 0, "order": 0, "range": 0, "rows": 0}
+    for q0 in range(0, query.shape[-2], chunk):
+        g, rows = got[:, q0:q0 + chunk], qmask[:, q0:q0 + chunk]
+        bad["range"] += int(((g < 0) | (g >= n)).any(dim=-1)[rows].sum())
+        tile = distance_tile(query[:, q0:q0 + chunk], pts, pmask)
+        vals, idx = torch.topk(tile, min(k + 1, n), dim=-1, largest=False, sorted=True)
+        d = torch.gather(tile, -1, g.clamp(0, n - 1))
+        bad["distances"] += int((d != vals[..., :k]).any(dim=-1)[rows].sum())
+        tie = d[..., 1:] == d[..., :-1]
+        step = (d[..., 1:] > d[..., :-1]) | (tie & (g[..., 1:] > g[..., :-1]))
+        bad["order"] += int((~step).any(dim=-1)[rows].sum())
+        if k < n:
+            apart = rows & (vals[..., k - 1] < vals[..., k])
+            diff = (torch.sort(g, dim=-1).values != torch.sort(idx[..., :k], dim=-1).values)
+            bad["indices"] += int(diff.any(dim=-1)[apart].sum())
+        bad["rows"] += int(rows.sum())
+    return bad
+
+
+def check_knn_select(device, reps: int = 5) -> dict:
+    """Phase 2's K3 part: each KNN_SELECT_CASES case against the plain chunk
+    loop (`knn_select_disagreement` all zero, the same bits twice), with
+    times and bound; the summary of the cases."""
+    rows = []
+    for b, q, n, k in KNN_SELECT_CASES:
+        query, qmask, pts, pmask = knn_select_inputs(b, q, n, 7 + q + b, device)
+        before = knn_select.launches
+        got = knn_indices(query, qmask, pts, pmask, k)
+        if knn_select.launches != before + 1:
+            raise AssertionError(f"knn_indices did not launch K3 at {(b, q, n, k)}")
+        bad = knn_select_disagreement(got, query, qmask, pts, pmask, k)
+        if any(v for key, v in bad.items() if key != "rows"):
+            raise AssertionError(f"K3 disagrees with the plain tile at {(b, q, n, k)}: {bad}")
+        if not torch.equal(got, knn_indices(query, qmask, pts, pmask, k)):
+            raise AssertionError(f"K3 gave other bits on a second call at {(b, q, n, k)}")
+        operands = kernel_operands(query, pts, pmask)
+        ms = graph_ms(lambda: knn_select(*operands, k))
+        call_ms = cuda_ms(lambda: knn_indices(query, qmask, pts, pmask, k), reps)
+        plain_ms = cuda_ms(lambda: knn_indices_plain(query, pts, pmask, k), max(1, reps // 2))
+        bound = KNN_SELECT_INSTRUCTIONS * b * q * n / H100_F32_LANE_RATE * 1e3
+        row = {"case": f"B={b} Q={q} N={n} k={k}", "ms": ms, "call_ms": call_ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "operations",
+               "share": bound / ms, "rows_compared": bad["rows"]}
+        print(f"kernel knn_select [{row['case']}]: every row agrees with the plain tile "
+              f"({bad['rows']} rows), kernel {ms:.4f} ms device ({call_ms:.4f} ms knn_indices with "
+              f"its enqueue), plain {plain_ms:.3f} ms, bound {bound:.4f} ms by operations "
+              f"({100 * bound / ms:.1f}% of bound)")
+        rows.append(row)
+    return {"ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows), "cases": rows}
+
+
 def main_path(cfg: RoloConfig, src, src_mask, tgt, tgt_mask, gt_rot, gt_trans,
               timed_reps: int = 3):
     """Phase 3: the bench workload through the port, with launch counts."""
@@ -584,6 +685,7 @@ def mapping(cfg: RoloConfig, frames):
     sync()
     keyed_matmul.launches = 0
     knn_moments.launches = 0
+    knn_select.launches = 0
     t_run, t_traces = time.perf_counter(), 0.0
     for i, ((fc, img), frame) in enumerate(zip(feats, frames)):
         stamp = frame.stamp
@@ -653,7 +755,8 @@ def mapping(cfg: RoloConfig, frames):
         solve(len(frames) - 1, None)
     sync()
     seconds = time.perf_counter() - t_run - t_traces
-    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches,
+                "knn_select": knn_select.launches}
 
     n_kf = int(state.db.count)
     kf_frames = [frames[i] for i in kf_scans]
@@ -798,6 +901,7 @@ def runtime_lap(cfg: RoloConfig, frames, device=None):
     sync()
     keyed_matmul.launches = 0
     knn_moments.launches = 0
+    knn_select.launches = 0
     try:
         t0 = time.perf_counter()
         res = run_frames(slam, frames)
@@ -805,7 +909,8 @@ def runtime_lap(cfg: RoloConfig, frames, device=None):
         seconds = time.perf_counter() - t0
     finally:
         backend_module.solve_graph_host = real_solve
-    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches,
+                "knn_select": knn_select.launches}
     del slam.process_scan, slam._dispatch_background
 
     n = len(frames)
@@ -1015,6 +1120,7 @@ def parallel_slice(cfg: RoloConfig, pairs, clouds, frames, ground, device):
     sync()
     keyed_matmul.launches = 0
     knn_moments.launches = 0
+    knn_select.launches = 0
     t_phase = time.perf_counter()
 
     # (a) registration_batch on the bench pairs: the rank's slice is all 16
@@ -1119,7 +1225,8 @@ def parallel_slice(cfg: RoloConfig, pairs, clouds, frames, ground, device):
         raise AssertionError("GenericEKF on the card disagrees with the CPU")
 
     sync()
-    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches,
+                "knn_select": knn_select.launches}
     print(f"parallel: phase 8 steps wall s {json.dumps({n: round(t, 3) for n, t in times.items()})}"
           f", {time.perf_counter() - t_phase:.1f} s in all; launches {launches}")
     for name, n in launches.items():
@@ -1156,7 +1263,8 @@ def batch_mapping(cfg: RoloConfig, frames, device):
     MIN_SEQ_KEYFRAMES keyframes a sequence; (c) the mapped keyframes within
     KF_GATE_M of the truth in each sequence's first-scan frame; (d) no
     keyframe moved more than SOLVE_MOVE_M by the solve, every other method
-    within DENSE_BCR_M of "dense"; (e) both kernels launched (by the front-end). Then
+    within DENSE_BCR_M of "dense"; (e) the three kernels launched (K1 and K2 by
+    the front-end, K3 by the binds). Then
     solve_graph_host's ms at each of SOLVE_BUCKETS on one sequence's
     state. Returns the kernels' launches over the phase."""
     st, reg, lc = cfg.static, cfg.registration, cfg.loop
@@ -1183,6 +1291,7 @@ def batch_mapping(cfg: RoloConfig, frames, device):
     sync()
     keyed_matmul.launches = 0
     knn_moments.launches = 0
+    knn_select.launches = 0
     t_phase = time.perf_counter()
     front = timed("odometry_batch", lambda: odometry_batch(
         xyz, mask, torch.tensor(intervals, dtype=torch.float32, device=device), reg,
@@ -1279,7 +1388,8 @@ def batch_mapping(cfg: RoloConfig, frames, device):
     if not (moved < SOLVE_MOVE_M and apart < DENSE_BCR_M):
         raise AssertionError("batch mapping (d): the solves moved keyframes or disagree")
     sync()
-    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches,
+                "knn_select": knn_select.launches}
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"batch mapping (e): kernel {name} was not launched in phase 9")
@@ -1337,8 +1447,8 @@ def latency_and_pipeline(device):
     (phase 6 has them): the saturated feed, then the 10 Hz feed, each on a
     fresh SlamSystem(RoloConfig()). Raises unless each mode measured
     N_LATENCY - WARMUP finite latencies, no 10 Hz scan started before its
-    arrival, each pass's ATE is finite and below LATENCY_ATE_M, and both
-    kernels launched. Then the pipeline tool at --warmup N_PIPE_WARMUP
+    arrival, each pass's ATE is finite and below LATENCY_ATE_M, and the
+    three kernels launched. Then the pipeline tool at --warmup N_PIPE_WARMUP
     --scans N_PIPE. Prints both reports as JSON lines; returns the kernels'
     launches over the latency passes."""
     latency, pipeline = _tool("torch_bench_latency"), _tool("torch_bench_pipeline")
@@ -1347,11 +1457,13 @@ def latency_and_pipeline(device):
     torch.cuda.synchronize()
     keyed_matmul.launches = 0
     knn_moments.launches = 0
+    knn_select.launches = 0
     t0 = time.perf_counter()
     report, sat, rt = latency.measure(frames, RoloConfig(), device, warm=False, buckets=(),
                                       n_cols=sim.n_cols)
     torch.cuda.synchronize()
-    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches,
+                "knn_select": knn_select.launches}
     print(f"latency: two feed modes over {N_LATENCY} scans in {time.perf_counter() - t0:.1f} s; "
           f"launches {launches}")
     print(json.dumps(report))
@@ -1406,7 +1518,7 @@ def profiles_and_diagnostics(device):
     prints as a JSON line. Raises unless every row is finite (a stage row's
     wall and kernel ms, launches and host waits; a build row's ms and
     device ms; the solve diagnostics' times and the bcr / pcg solutions),
-    both kernels launched in the profilers, bcr and pcg agree with a finite
+    the three kernels launched in the profilers, bcr and pcg agree with a finite
     dense solution within SOLVE_AGREE_M, pcg (and a finite dense) solve ends
     within a fifth of its start's error (tests/test_graph.py's scale
     assertion), every CT variant's estimates are finite, and the prior
@@ -1417,6 +1529,7 @@ def profiles_and_diagnostics(device):
     torch.cuda.synchronize()
     keyed_matmul.launches = 0
     knn_moments.launches = 0
+    knn_select.launches = 0
     t0 = time.perf_counter()
     front = _tool("torch_profile_frontend").profile(device, cfg, iters=PROFILE_ITERS)
     stages = _tool("torch_profile_stages").profile(device, iters=PROFILE_ITERS)
@@ -1424,7 +1537,8 @@ def profiles_and_diagnostics(device):
     back = _tool("torch_profile_backend").profile(device, cfg, iters=1)
     proj = _tool("torch_profile_projection").profile(device, cfg, iters=PROFILE_ITERS)
     torch.cuda.synchronize()
-    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches,
+                "knn_select": knn_select.launches}
     print(f"profilers: {time.perf_counter() - t0:.1f} s; launches {launches}")
     for name, report in (("torch_profile_frontend", front), ("torch_profile_stages", stages),
                          ("torch_profile_backend", back), ("torch_profile_projection", proj)):
@@ -1508,7 +1622,7 @@ def multirank_worker(spec: dict) -> int:
     parent's median pair, within SPMD_ROT / SPMD_TRANS of its
     register_scan_pair and inside the bench gate; (c)
     dryrun_multichip(world). Any miss raises. Prints RESULT: the numbers,
-    each step's wall, both kernels' launches over (a)-(c) and the card's
+    each step's wall, the three kernels' launches over (a)-(c) and the card's
     memory."""
     torch.set_num_threads(1)
     configure_precision()
@@ -1538,6 +1652,7 @@ def multirank_worker(spec: dict) -> int:
     sync()
     keyed_matmul.launches = 0
     knn_moments.launches = 0
+    knn_select.launches = 0
     got = timed("a registration_batch", lambda: registration_batch(
         *shard_registration_inputs(mesh, src, sm, tgt, tm, interval=0.2), cfg=reg,
         voxel_capacity=cap, k=k))
@@ -1563,7 +1678,8 @@ def multirank_worker(spec: dict) -> int:
                              f"{trans_err[0]:.5f} m from the truth")
     timed("c dryrun_multichip", lambda: dryrun_multichip(world, device))
     sync()
-    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches,
+                "knn_select": knn_select.launches}
     torch.distributed.barrier()  # every rank alive while the card's processes are listed
     apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -1596,7 +1712,7 @@ def multirank(pairs, device):
     their own over NCCL where the machine has them, else both on card 0
     over gloo, run `multirank_worker`'s (a)-(c) on phase 3's bench pairs,
     handed over in a temporary .npz with the one-process batch's result, the
-    median pair and its register_scan_pair; (d) both kernels must have
+    median pair and its register_scan_pair; (d) the three kernels must have
     launched in every rank, and both ranks hold the same SPMD bits. (e)
     tools/torch_bench_weak_2proc.py at its defaults and
     tools/torch_bench_scaling.py at --ranks N_RANKS --repeats 1, each row
@@ -1671,7 +1787,7 @@ def multirank(pairs, device):
     print(f"multirank (e): torch_bench_scaling {time.perf_counter() - t1:.1f} s")
     _positive_rows("torch_bench_weak_2proc", [row])
     _positive_rows("torch_bench_scaling", rows)
-    return {name: [res["launches"][name] for res in results] for name in KERNELS}
+    return {name: [res["launches"][name] for res in results] for name in results[0]["launches"]}
 
 
 # phase 13: the Ouster OS-64 configuration the repo ships, through the CLI
@@ -1809,12 +1925,14 @@ def _cli_in_process(argv, per_scan=None) -> tuple:
     stdout = io.StringIO()
     keyed_matmul.launches = 0
     knn_moments.launches = 0
+    knn_select.launches = 0
     try:
         with contextlib.redirect_stdout(stdout):
             rc = cli_main(argv)
     finally:
         SlamSystem.process_scan = real
-    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches}
+    launches = {"keyed_sum": keyed_matmul.launches, "knn_moments": knn_moments.launches,
+                "knn_select": knn_select.launches}
     if rc != 0:
         raise AssertionError(f"the CLI returned {rc}:\n{stdout.getvalue()[-4000:]}")
     text = stdout.getvalue()  # the result is the last thing printed, an indented JSON object
@@ -1830,7 +1948,7 @@ def ouster(device, n_scans: int = N_OUSTER):
     4); (b) the command line in this process, `run --input <dir of Ouster
     PCDs> --config params_os.yaml --config prior_pose_params.yaml --gt
     <tum>`, over n_scans simulated scans: rc 0, every scan processed, finite
-    poses, front-end ATE < OUSTER_ATE_M, both kernels launched, the exports
+    poses, front-end ATE < OUSTER_ATE_M, the three kernels launched, the exports
     written; (c) the capacity funnel of each scan. The shipped
     max_raw_points keeps about half a sweep's pixels; the same frames run
     again through run_frames with the whole sweep kept, held to the same
@@ -2179,14 +2297,14 @@ def m2ud(device, n_scans: int = N_M2UD, n_bin: int = N_M2UD_BIN):
     --config params.yaml --config prior_pose_params.yaml --gt <tum>`: rc 0,
     every scan, finite poses, front-end ATE < M2UD_ATE_M, mapped keyframes
     no worse, the loaded loop type "rs", at least one loop factor between
-    keyframes more than historyKeyframeSearchTimeDiff apart, both kernels
-    launched, the exports written; the loop tick that verified and the
+    keyframes more than historyKeyframeSearchTimeDiff apart, the three
+    kernels launched, the exports written; the loop tick that verified and the
     first solve that carried its factor, each synced and timed, and the
     prior ticks' funnel with the prior factors, printed (BackendWatch; the
     JAX package records no prior observation here either); (c) the
     README's KITTI .bin recipe on the first
     n_bin scans (rings and times inferred): rc 0, every scan, finite poses,
-    both kernels launched, and the ring funnel. Returns the kernels' summary
+    the three kernels launched, and the ring funnel. Returns the kernels' summary
     and both runs' launches. `device` "cpu" rehearses the phase."""
     device = torch.device(device)
     on_card = device.type == "cuda"
@@ -2331,8 +2449,9 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
           f"nvidia-smi: {smi}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
-        built = dict(zip(KERNELS, pool.map(cuda_build.build, KERNELS)))
+    sources = [*KERNELS, "knn_select"]
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        built = dict(zip(sources, pool.map(cuda_build.build, sources)))
     for name, (path, seconds) in built.items():
         print(f"build {name}: {seconds:.1f} s -> {path.name}")
         for line in cuda_build.BUILD_LOG.get(name, "").splitlines():
@@ -2352,6 +2471,7 @@ def main() -> int:
     cases += [{**c, "case": f"B=1 {c['case']}"}
               for c in kernel_cases(cfg, *(t[:1] for t in pairs[:4]))]
     summary = check_kernels(cases)
+    knn_select_summary = check_knn_select(device)
     launches, rot_med, trans_med, rate = main_path(cfg, *pairs)
     print(f"registrations/s: {rate:.2f} at B={BATCH} on {smi} "
           f"(gate medians {rot_med:.4f} deg, {trans_med:.5f} m)")
@@ -2424,7 +2544,19 @@ def main() -> int:
          "max_abs_err": max(summary[name]["max_abs_err"], ouster_summary[name]["max_abs_err"],
                             m2ud_summary[name]["max_abs_err"]),
          "params_os": ouster_summary[name], "m2ud": m2ud_summary[name]}
-        for name in KERNELS]}))
+        for name in KERNELS], "knn_select": {
+            "route": "cuda", "source": "rolo_tpu_torch/csrc/knn_select.cu",
+            "launches_mapping": map_launches["knn_select"],
+            "launches_per_lap_scan": map_launches["knn_select"] / N_MAP,
+            "launches_runtime": runtime_launches["knn_select"],
+            "launches_parallel": parallel_launches["knn_select"],
+            "launches_batch_mapping": batch_launches["knn_select"],
+            "launches_latency": latency_launches["knn_select"],
+            "launches_profile": profile_launches["knn_select"],
+            "launches_multirank": multirank_launches["knn_select"],
+            "launches_ouster": ouster_launches["knn_select"],
+            "launches_m2ud": m2ud_launches["knn_select"],
+            "launches_m2ud_bin": m2ud_bin_launches["knn_select"], **knn_select_summary}}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,20 +2,23 @@
 point-to-plane factors and the degeneracy projection, torch port of
 `rolo_tpu/mapping/scan2map.py` (backMapping's scan2MapOptimization).
 
-The k-NN searches are `knn_indices` in the matmul form over [chunk, N]
-distance tiles with `torch.topk`. The reference's `lax.while_loop` is a
-Python loop with one host check per iteration; its inner `lax.cond`s
-(stale-candidate guard, rebind, first-iteration projection) are host
-branches on the iteration count or on the value fetched by that same check.
+The k-NN searches are `knn_indices` in the matmul form: kernel K3 on the
+card, [chunk, N] distance tiles with `torch.topk` on the CPU. Each (re)bind,
+the corner and surface 5-NN and fits, is the span `backend.bind` in traced
+runs. The reference's `lax.while_loop` is a Python loop with one host check
+per iteration; its inner `lax.cond`s (stale-candidate guard, rebind,
+first-iteration projection) are host branches on the iteration count or on
+the value fetched by that same check.
 
 Every function takes an optional leading batch: `scan2map_optimize` over B
 scans and submaps is the reference under `vmap`, each instance with its own
 convergence and stale-candidate masks, and an instance that has stopped
 keeps its pose. An instance of a batch gets the bits it gets alone: the
 small products are `small_matmul`, the normal equations two-stage
-`fixed_sum`s, and the plane and line fits' products, the k-NN tiles and the
-degeneracy eigendecomposition one call per instance (`ops.linalg.each`),
-whose rounding the fits' gates are sensitive to.
+`fixed_sum`s, and the plane and line fits' products, the plain k-NN tiles
+and the degeneracy eigendecomposition one call per instance
+(`ops.linalg.each`), whose rounding the fits' gates are sensitive to; K3
+selects exactly, whatever the batch.
 """
 
 from __future__ import annotations
@@ -248,11 +251,13 @@ def scan2map_optimize(rpy0: torch.Tensor, xyz0: torch.Tensor, corner_pts, corner
         return cand_c, cand_s, torch.minimum(rad_c, rad_s), rpy, xyz
 
     def rebind(rpy, xyz, cand):
-        rot = _rpy_matrix(rpy)
-        cand_c, cand_s = (cand[0], cand[1]) if cand is not None else (None, None)
-        return (corner_bind(corner_pts, corner_mask, submap_corner, rot, xyz, chunk, approx_knn,
-                            cand_c),
-                surf_bind(surf_pts, surf_mask, submap_surf, rot, xyz, chunk, approx_knn, cand_s))
+        with profiling.span("backend.bind", sync=lambda: (cb.valid, sb.valid)):
+            rot = _rpy_matrix(rpy)
+            cand_c, cand_s = (cand[0], cand[1]) if cand is not None else (None, None)
+            cb = corner_bind(corner_pts, corner_mask, submap_corner, rot, xyz, chunk, approx_knn,
+                             cand_c)
+            sb = surf_bind(surf_pts, surf_mask, submap_surf, rot, xyz, chunk, approx_knn, cand_s)
+        return cb, sb
 
     def moved_far(rpy, xyz, cand) -> torch.Tensor:
         _, _, radius, a_rpy, a_xyz = cand

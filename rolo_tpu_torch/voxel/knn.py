@@ -1,13 +1,18 @@
 """k-NN search and per-point covariances from k-NN neighbourhoods, torch
 port of `rolo_tpu/voxel/knn.py`.
 
-`knn_indices` takes the reference's arguments: the distance tile in the
-matmul form |q|^2 - 2 q.x + |x|^2 (full f32; the scan-to-submap binds; q.x
-one matmul per cloud of a batch, `matmul_each`, so each rounds as alone,
-where cuBLAS's batched matmul picks its kernel by the batch) or the
-cancellation-free elementwise form (covariance neighbourhoods), a plain
-argmin for k=1, and `approximate=True` as an exact top-k, which is what the
-reference computes off the TPU.
+`knn_indices` takes the reference's arguments: the distance in the matmul
+form |q|^2 - 2 q.x + |x|^2 (full f32; the scan-to-submap binds, the loop and
+prior ICPs) or the cancellation-free elementwise form (covariance
+neighbourhoods), and `approximate=True` as an exact top-k, which is what the
+reference computes off the TPU. On CUDA tensors the matmul form is kernel
+K3 (`ops/knn_select.py`) for every k up to its MAX_K, 64 (a larger k
+raises there), with no distance tile in device memory. CPU tensors and the
+elementwise form (`estimate_cov6`'s exact oracle) are the plain version:
+[chunk, N] tiles (q.x one matmul per cloud of a batch, `matmul_each`, so
+each rounds as alone, where cuBLAS's batched matmul picks its kernel by the
+batch), `torch.topk`, and a plain argmin for k=1. Traced runs count the calls each serves
+(`knn.kernel_calls` / `knn.plain_calls`).
 
 In `estimate_cov6`, "moment" is the production path: the neighbourhood
 moments come from kernel K2 (`ops/knn_moments.py`) for any candidate count,
@@ -25,7 +30,9 @@ import torch
 from ..ops import sym3
 from ..ops.eig3 import eigh3
 from ..ops.knn_moments import knn_moments
+from ..ops.knn_select import knn_select, pack_points
 from ..ops.linalg import matmul_each
+from ..runtime import profiling
 
 PLANE = "plane"
 MIN_EIG = "min_eig"
@@ -43,6 +50,58 @@ def _d2_chunk(qc: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return dx * dx + dy * dy + dz * dz
 
 
+def _flat(query, points, points_mask):
+    """Queries [B, Q, 3], points [B, N, 3] with invalid coordinates zeroed,
+    their mask [B, N] and |x|^2 [B, N], the batch's leading dims flattened."""
+    q = query.reshape(-1, *query.shape[-2:])
+    pm = points_mask.reshape(-1, points_mask.shape[-1])
+    pts = torch.where(pm[..., None], points.reshape(-1, *points.shape[-2:]), 0.0)
+    return q, pts, pm, torch.sum(pts * pts, dim=-1)
+
+
+def kernel_operands(query, points, points_mask):
+    """K3's operands from `knn_indices`' arguments: q [B, Q, 3], |q|^2 [B, Q]
+    and the (x, y, z, xx) rows [B, N, 4], |q|^2 and the masked |x|^2 (+inf
+    at invalid points) computed by the plain tile's ops, so that K3's d is
+    the tile's."""
+    q, pts, pm, x2 = _flat(query, points, points_mask)
+    return q, torch.sum(q * q, dim=-1), pack_points(pts, torch.where(pm, x2, float("inf")))
+
+
+def _tile(qc, pts, pm, x2, form):
+    """[B, C, N] distances of a chunk of queries, +inf at invalid points."""
+    if form == "elementwise":
+        d2 = _d2_chunk(qc, pts)
+    else:
+        d2 = (torch.sum(qc * qc, dim=-1, keepdim=True)
+              - 2.0 * matmul_each(qc, pts.transpose(1, 2)) + x2[:, None, :])
+    return d2 + torch.where(pm, 0.0, float("inf"))[:, None, :]
+
+
+def distance_tile(query: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor,
+                  form: str = "matmul") -> torch.Tensor:
+    """The plain version's distances of one chunk of queries, [..., C, N]:
+    the values `knn_indices` ranks (for tests that compare with them)."""
+    q, pts, pm, x2 = _flat(query, points, points_mask)
+    return _tile(q, pts, pm, x2, form).reshape(*query.shape[:-1], pts.shape[1])
+
+
+def knn_indices_plain(query: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor,
+                      k: int, chunk: int = 512, form: str = "matmul") -> torch.Tensor:
+    """The plain version of `knn_indices`, on any device: a [B, chunk, N]
+    distance tile per chunk of queries, then `torch.topk` (`torch.argmin`
+    for k=1). The CPU path, and kernel K3's oracle on the card."""
+    q, pts, pm, x2 = _flat(query, points, points_mask)
+    out = []
+    for q0 in range(0, q.shape[1], chunk):
+        d2 = _tile(q[:, q0:q0 + chunk], pts, pm, x2, form)
+        if k == 1:
+            out.append(torch.argmin(d2, dim=-1, keepdim=True))
+        else:
+            out.append(torch.topk(d2, k, dim=-1, largest=False, sorted=True).indices)
+    return torch.cat(out, dim=1).reshape(*query.shape[:-1], k)
+
+
 def knn_indices(query: torch.Tensor, query_mask: torch.Tensor, points: torch.Tensor,
                 points_mask: torch.Tensor, k: int, chunk: int = 512, approximate: bool = False,
                 recall_target: float = 0.95, form: str = "matmul") -> torch.Tensor:
@@ -51,35 +110,24 @@ def knn_indices(query: torch.Tensor, query_mask: torch.Tensor, points: torch.Ten
     query [..., Q, 3], query_mask [..., Q], points [..., N, 3], points_mask
     [..., N] -> idx [..., Q, k] int64; the leading dims are an optional batch
     shared by all four. Invalid points lie at infinite distance (their
-    coordinates, NaN included, never enter the tile); rows of invalid queries
+    coordinates, NaN included, never enter a distance); where fewer than k
+    points are valid the tail points at invalid ones. Rows of invalid queries
     are arbitrary, as in the reference, and are masked downstream.
     `approximate` and `recall_target` select the TPU's approximate top-k in
     the reference; off the TPU it computes the exact top-k, and so does this
-    port. Ties among equal distances may pick other indices than the
-    reference's top-k."""
+    port. Ties among equal distances go to the lower index on the card's
+    kernel path and for k=1 (`torch.argmin`), and may pick other indices
+    than the reference's top-k elsewhere. `chunk` is the plain version's
+    queries per tile; the kernel path tiles by itself."""
     del query_mask, approximate, recall_target  # see the docstring
     if form not in ("matmul", "elementwise"):
         raise ValueError(f"unknown distance form {form!r}")
-    batch = query.shape[:-2]
-    q = query.reshape(-1, *query.shape[-2:])
-    pm = points_mask.reshape(-1, points_mask.shape[-1])
-    pts = torch.where(pm[..., None], points.reshape(-1, *points.shape[-2:]), 0.0)
-    inf_row = torch.where(pm, 0.0, float("inf"))[:, None, :]
-    x2 = torch.sum(pts * pts, dim=-1)[:, None, :]
-    out = []
-    for q0 in range(0, q.shape[1], chunk):
-        qc = q[:, q0:q0 + chunk]
-        if form == "elementwise":
-            d2 = _d2_chunk(qc, pts)
-        else:
-            d2 = (torch.sum(qc * qc, dim=-1, keepdim=True)
-                  - 2.0 * matmul_each(qc, pts.transpose(1, 2)) + x2)
-        d2 = d2 + inf_row
-        if k == 1:
-            out.append(torch.argmin(d2, dim=-1, keepdim=True))
-        else:
-            out.append(torch.topk(d2, k, dim=-1, largest=False, sorted=True).indices)
-    return torch.cat(out, dim=1).reshape(*batch, q.shape[1], k)
+    if form == "matmul" and query.is_cuda:  # K3's wrapper refuses k above its MAX_K
+        idx = knn_select(*kernel_operands(query, points, points_mask), k)
+        profiling.count("knn.kernel_calls", 1)
+        return idx.reshape(*query.shape[:-1], k)
+    profiling.count("knn.plain_calls", 1)
+    return knn_indices_plain(query, points, points_mask, k, chunk, form)
 
 
 def regularize_covariance(cov: torch.Tensor, method: str = PLANE) -> torch.Tensor:

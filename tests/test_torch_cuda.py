@@ -24,12 +24,14 @@ from rolo_tpu_torch import bench
 from rolo_tpu_torch.config import RegistrationConfig, load_config
 from rolo_tpu_torch.ops import cuda_build
 from rolo_tpu_torch.ops.knn_moments import knn_moments, knn_moments_torch
+from rolo_tpu_torch.ops.knn_select import MAX_K, knn_select
 from rolo_tpu_torch.ops.voxel_join import (INVALID_PACK, MAX_SHARED_KEYS, keyed_matmul,
                                            keyed_matmul_torch)
 from rolo_tpu_torch.registration.rotgicp import register_scan_pair
 from rolo_tpu_torch.runtime.platform import configure_precision
 from rolo_tpu_torch.sim.dataset import SimFrame
-from rolo_tpu_torch.voxel.knn import moment_table
+from rolo_tpu_torch.voxel.knn import (distance_tile, kernel_operands, knn_indices,
+                                      knn_indices_plain, moment_table)
 
 pytestmark = pytest.mark.cuda
 
@@ -42,7 +44,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("name", ["keyed_sum", "knn_moments"])
+@pytest.mark.parametrize("name", ["keyed_sum", "knn_moments", "knn_select"])
 def test_kernel_builds(cuda, name):
     path, _ = cuda_build.build(name)
     assert path.exists()
@@ -186,6 +188,197 @@ def test_knn_moments_starved_queries(cuda):
     got = knn_moments(*(t.to(cuda) for t in (cand, cmask, cand, cmask, xc)), 20).cpu()
     assert torch.all(got[0, 0, :8] == 8.0)
     assert torch.all(got[0, :, 8:] == 0.0)
+
+
+# K3 (knn_select) against the plain chunk loop of knn_indices on the card
+
+
+def _plain_tile(query, pts, pmask, chunk=512):
+    return torch.cat([distance_tile(query[:, q0:q0 + chunk], pts, pmask)
+                      for q0 in range(0, query.shape[1], chunk)], dim=1)
+
+
+def _no_disagreement(got, query, qmask, pts, pmask, k):
+    bad = chip_smoke.knn_select_disagreement(got, query, qmask, pts, pmask, k)
+    assert bad["rows"] == int(qmask.sum()) and not any(
+        v for key, v in bad.items() if key != "rows"), bad
+
+
+@pytest.mark.parametrize("bsz,q,n", [(2, 700, 32768), (1, 512, 16384), (16, 512, 32768),
+                                     (3, 1000, 2000)])
+def test_knn_select_distance_is_the_plain_tile(cuda, bsz, q, n):
+    """The d the kernel compares is the plain tile's bit for bit (the dot as
+    an FMA chain x, y, z, as cuBLAS's K = 3 product rounds): each row's 16
+    selected d, in order, equal the tile's 16 smallest, the last chunk of
+    queries short of 512 too."""
+    query, qmask, pts, pmask = chip_smoke.knn_select_inputs(bsz, q, n, 11, cuda)
+    got = knn_indices(query, qmask, pts, pmask, 16)
+    bad = chip_smoke.knn_select_disagreement(got, query, qmask, pts, pmask, 16)
+    assert bad["rows"] == bsz * q and bad["distances"] == 0, bad
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("bsz", [1, 16])
+@pytest.mark.parametrize("q,n", [(4096, 32768), (12288, 32768), (4096, 16384)])
+def test_knn_select_matches_plain(cuda, k, bsz, q, n):
+    """The binds' shapes (4,096 corners and 12,288 surfaces against 32,768
+    submap slots) and the loop ICP's (4,096 against 16,384), at a batch of
+    16 and a stream's 1: the kernel's selection is the plain tile's, the same
+    bits on a second call, and each instance of a batch its bits alone."""
+    query, qmask, pts, pmask = chip_smoke.knn_select_inputs(bsz, q, n, 3 + k, cuda)
+    before = knn_select.launches
+    got = knn_indices(query, qmask, pts, pmask, k)
+    assert knn_select.launches == before + 1
+    _no_disagreement(got, query, qmask, pts, pmask, k)
+    assert torch.equal(got, knn_indices(query, qmask, pts, pmask, k))
+    if bsz > 1:
+        for b in sorted({0, bsz // 2, bsz - 1}):
+            assert torch.equal(got[b], knn_indices(query[b], qmask[b], pts[b], pmask[b], k)), b
+    plain = knn_indices_plain(query, pts, pmask, k)
+    print(f"knn_select B={bsz} Q={q} N={n} k={k}: rows whose indices differ from the plain "
+          f"loop's {int((got != plain).any(dim=-1).sum())} of {bsz * q}")
+
+
+def _edge_case(case, device):
+    """Two instances of 1,000 queries (not a multiple of a block's) against
+    2,000 slots (not a multiple of a tile's)."""
+    query, qmask, pts, pmask = chip_smoke.knn_select_inputs(2, 1000, 2000, 21, "cpu")
+    if case == "masked":  # a third of the slots invalid, NaN coordinates
+        pmask &= torch.as_tensor(np.random.default_rng(1).random((2, 2000)) >= 0.3)
+    elif case == "duplicates":  # every point twice, and rounded: ties everywhere
+        pts = torch.round(torch.nan_to_num(pts[:, :1000], nan=0.0) * 4) / 4
+        pts, pmask = torch.cat([pts, pts], dim=1), torch.cat([pmask[:, :1000]] * 2, dim=1)
+        query = torch.round(query * 4) / 4
+    elif case == "starved":  # 3 valid slots: the tail points at invalid ones
+        pmask[:] = False
+        pmask[:, [5, 900, 1999]] = True
+        pts = torch.where(pmask[..., None], torch.nan_to_num(pts, nan=1.0), float("nan"))
+    elif case == "all_invalid":  # instance 0 has no valid slot
+        pmask[0] = False
+        pts[0] = float("nan")
+    elif case == "nan_queries":  # invalid queries hold NaN coordinates
+        qmask[:, ::3] = False
+        query = torch.where(qmask[..., None], query, float("nan"))
+    return tuple(t.to(device) for t in (query, qmask, pts, pmask))
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("case", ["masked", "duplicates", "starved", "all_invalid", "nan_queries"])
+def test_knn_select_edge_cases(cuda, case, k):
+    query, qmask, pts, pmask = _edge_case(case, cuda)
+    got = knn_indices(query, qmask, pts, pmask, k)
+    _no_disagreement(got, query, qmask, pts, pmask, k)
+    assert torch.equal(got, knn_indices(query, qmask, pts, pmask, k))
+    assert ((got >= 0) & (got < pts.shape[1])).all()  # invalid queries' rows too
+    if case == "starved":  # the valid slots, then the lowest-index invalid ones in order
+        head, tail = got[..., :min(k, 3)], got[..., 3:]
+        assert torch.gather(pmask, 1, head.reshape(2, -1)).all()
+        lowest = torch.tensor([0, 1, 2, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13], device=cuda)
+        assert torch.equal(tail, lowest[:tail.shape[-1]].expand_as(tail))
+    if case == "all_invalid":  # every slot at +inf: the lowest indices, in order
+        assert torch.equal(got[0], torch.arange(k, device=cuda).expand(1000, k))
+    if case == "duplicates":  # a point and its copy tie: the lower index first
+        tile = _plain_tile(query, pts, pmask)
+        d = torch.gather(tile, -1, got)
+        assert ((d[..., 1:] > d[..., :-1]) | (got[..., 1:] > got[..., :-1])).all()
+
+
+def test_knn_select_refuses_k_above_queue(cuda):
+    """k past the 32-slot queue up to MAX_K (64) is K3's 64-slot queue; a
+    larger k raises on the card, before any launch, rather than fall back
+    to the plain tiles."""
+    query, qmask, pts, pmask = chip_smoke.knn_select_inputs(2, 700, 4096, 1, cuda)
+    for k in (33, MAX_K):
+        before = knn_select.launches
+        got = knn_indices(query, qmask, pts, pmask, k)
+        assert knn_select.launches == before + 1
+        _no_disagreement(got, query, qmask, pts, pmask, k)
+    before = knn_select.launches
+    with pytest.raises(ValueError, match="1 <= k"):
+        knn_indices(query, qmask, pts, pmask, MAX_K + 1)
+    assert knn_select.launches == before
+
+
+@pytest.mark.parametrize("bsz", [1, 16])
+def test_knn_select_takes_the_candidate_count(cuda, bsz):
+    """`nn_candidates` at scan2map_candidates = 64 (tools/torch_ab_defaults):
+    4,096 corners against 32,768 submap slots, the kernel's selection the
+    plain tile's, the same bits on a second call."""
+    query, qmask, pts, pmask = chip_smoke.knn_select_inputs(bsz, 4096, 32768, 5, cuda)
+    got = knn_indices(query, qmask, pts, pmask, 64)
+    _no_disagreement(got, query, qmask, pts, pmask, 64)
+    assert torch.equal(got, knn_indices(query, qmask, pts, pmask, 64))
+
+
+def _plain_lower_index_first(query, points, points_mask, k, chunk=512, form="matmul"):
+    """The plain tiles ranked with K3's tie rule: a stable sort (equal
+    distances in index order) in place of `torch.topk`, whose radix select
+    orders ties otherwise."""
+    # each chunk's first k copied out, so that no chunk's whole [B, chunk, N] order stays alive
+    return torch.cat([torch.sort(distance_tile(query[..., q0:q0 + chunk, :], points, points_mask,
+                                               form), dim=-1, stable=True).indices[..., :k].clone()
+                      for q0 in range(0, query.shape[-2], chunk)], dim=-2)
+
+
+@pytest.mark.parametrize("bsz", [1, 16])
+def test_scan2map_kernel_binds_give_the_plain_pose(cuda, monkeypatch, bsz):
+    """scan2map_optimize at the cells' capacities (4,096 corner and 12,288
+    surface points, 32,768-slot submaps) and the stream's GN (16 iterations,
+    a rebind every 10): with K3 in the binds the same pose, bits and all, as
+    with the plain tiles where both order the neighbours alike. The matmul
+    form's d is quantized by its cancellation, so exact ties are common (a
+    few rows in a thousand) and `torch.topk` orders them otherwise than K3:
+    the plain side breaks ties by the lower index, as K3 does."""
+    from rolo_tpu_torch.config import RoloConfig
+    from rolo_tpu_torch.mapping import scan2map as s2m
+    from rolo_tpu_torch.ops.pytree import tree_leaves
+    from rolo_tpu_torch.pointcloud.cloud import PaddedCloud
+
+    cfg = RoloConfig()
+    st, m = cfg.static, cfg.mapping
+    world = chip_smoke._tool("torch_bench_batch_mapping").world
+    rng = np.random.default_rng(bsz)
+    subs, scans = [], []
+    for b in range(bsz):
+        corner, surf = world(40 + b, st.max_submap_points + 8, st.max_submap_points + 12)
+        subs.append((corner[:st.max_submap_points], surf[:st.max_submap_points]))
+        corner, surf = world(80 + b, st.max_surf_points + 8, st.max_corner_points + 12)
+        shift = np.array([0.3, -0.2, 0.05], np.float32) * (1 + 0.1 * b)
+        scans.append((corner[:st.max_corner_points] - shift, surf[:st.max_surf_points] - shift))
+
+    def cloud(arrs, drop):
+        xyz = torch.as_tensor(np.stack(arrs), device=cuda)
+        mask = torch.as_tensor(rng.random(xyz.shape[:2]) >= drop, device=cuda)
+        return torch.where(mask[..., None], xyz, 0.0), mask
+
+    (sc, scm), (ss, ssm) = cloud([c for c, _ in scans], 0.05), cloud([s for _, s in scans], 0.05)
+    sub_c, sub_s = (PaddedCloud(*cloud([s[i] for s in subs], 0.1)) for i in (0, 1))
+    zero = torch.zeros(bsz, 3, device=cuda)
+    for pts, mask, sub in ((sc, scm, sub_c), (ss, ssm, sub_s)):  # the first bind's neighbours
+        got = knn_indices(pts, mask, sub.xyz, sub.mask, 5)
+        assert torch.equal(got[mask], _plain_lower_index_first(pts, sub.xyz, sub.mask, 5)[mask])
+        ties = (got != knn_indices_plain(pts, sub.xyz, sub.mask, 5)).any(dim=-1)[mask]
+        print(f"scan2map B={bsz}: rows where torch.topk orders ties otherwise "
+              f"{int(ties.sum())} of {int(mask.sum())}")
+
+    def solve():
+        return s2m.scan2map_optimize(zero, zero, sc, scm, ss, ssm, sub_c, sub_s,
+                                     max_iterations=m.scan2map_max_iterations,
+                                     degeneracy_threshold=m.degeneracy_eigen_threshold,
+                                     chunk=st.knn_query_chunk, rebind_every=m.scan2map_rebind_every,
+                                     n_candidates=m.scan2map_candidates)
+
+    before = knn_select.launches
+    kernel = solve()
+    assert knn_select.launches >= before + 2
+    monkeypatch.setattr(s2m, "knn_indices",  # every bind takes the plain tiles
+                        lambda q, qm, p, pm, k, chunk=512, **kw:
+                        _plain_lower_index_first(q, p, pm, k, chunk))
+    before = knn_select.launches
+    plain = solve()
+    assert knn_select.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(kernel), tree_leaves(plain)))
+    assert int(kernel.iterations.min()) >= 2 and torch.isfinite(kernel.trans).all()
 
 
 @pytest.mark.parametrize("run_heads", [False, True])
